@@ -7,6 +7,9 @@ import sys
 TOOLS = {
     "bloom-dbg": ("Bloom-filter de Bruijn graph assembler",
                   "abyss_tpu_torch.cli.tools", "bloom_dbg_main"),
+    "bloom": ("Bloom filter utility (abyss-bloom: build/union/"
+              "intersect/info/compare/kmers/trim/graph)",
+              "abyss_tpu_torch.cli.bloom_tool", "main"),
 }
 
 

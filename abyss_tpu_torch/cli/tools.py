@@ -1,6 +1,6 @@
 """CLI entry points of the port (mirrors abyss_tpu/cli/tools.py).
 
-Ported so far: abyss-bloom-dbg.
+Ported so far: abyss-bloom-dbg; abyss-bloom is cli/bloom_tool.py.
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 // Host loops over the CUDA kernels' grids, for the CPU test suite.
 //
-// g++ compiles the kernels' per-thread bodies (nthash.cuh, walk.cuh)
-// into this library; each loop below runs them over the same blocks and
-// threads, with the same shared-memory staging, as nthash.cu and walk.cu
-// launch them.  tests/test_torch_kernel_host.py holds the results
-// bit-identical to the plain PyTorch versions.
+// g++ compiles the kernels' per-thread bodies (nthash.cuh, walk.cuh,
+// scatter_max.cuh) into this library; each loop below runs them over the
+// same blocks and threads, with the same shared-memory staging, as
+// nthash.cu, walk.cu and scatter_max.cu launch them.
+// tests/test_torch_kernel_host.py holds the results bit-identical to the
+// plain PyTorch versions.
 
 #include <stdint.h>
 
 #include "nthash.cuh"
+#include "scatter_max.cuh"
 #include "walk.cuh"
 
 // nthash.cu: block (row, tile), thread tid; canon/valid go through the
@@ -38,18 +40,85 @@ extern "C" void nthash_host(const uint8_t* codes, int64_t B, int64_t L,
         }
 }
 
+namespace {
+
+walk::TableSolid table_solid(const uint64_t* tab, int64_t size) {
+    return walk::TableSolid{tab, uint64_t(size - 1)};
+}
+
+walk::BloomSolid bloom_solid(const uint8_t* counters, int64_t size,
+                             int hash_k, int num_hashes, int threshold) {
+    return walk::BloomSolid{counters, uint64_t(size - 1), hash_k, num_hashes,
+                            threshold};
+}
+
+template <class Solid>
+void branch_loop(const uint8_t* roots, int64_t N, int k, const uint64_t* f0,
+                 const uint64_t* r0, const Solid& solid, int max_depth,
+                 int W, uint64_t* fs, uint64_t* rs, uint8_t* hist, int H,
+                 int32_t* depth, int64_t* probes) {
+    nthash::Tables t;
+    nthash::make_tables(t, k);
+    for (int64_t i = 0; i < N; ++i)
+        depth[i] = walk::branch_root(roots + i * k, k, f0[i], r0[i], solid,
+                                     t, max_depth, W, N, i, fs, rs, hist, H,
+                                     probes + i);
+}
+
+template <class Solid>
+void walk_loop(uint8_t* buf, int64_t P, int64_t BUF, int64_t* length,
+               uint64_t* f, uint64_t* r, int8_t* status,
+               const uint64_t* seed_canon, uint8_t* has_prev,
+               const Solid& solid, int k, int64_t max_steps) {
+    nthash::Tables t;
+    nthash::make_tables(t, k);
+    for (int64_t lane = 0; lane < P; ++lane) {
+        if (status[lane] != walk::ACTIVE) continue;
+        walk::Lane s{length[lane], f[lane], r[lane], status[lane],
+                     has_prev[lane] != 0};
+        walk::walk_lane(buf + lane * BUF, BUF, s, seed_canon[lane], solid, k,
+                        t, max_steps);
+        length[lane] = s.length;
+        f[lane] = s.f;
+        r[lane] = s.r;
+        status[lane] = s.status;
+        has_prev[lane] = s.has_prev;
+    }
+}
+
+// scatter_max.cu's word access without atomics: one host thread.
+struct HostWord {
+    static uint32_t load(const uint32_t* w) { return *w; }
+    static uint32_t cas(uint32_t* w, uint32_t cmp, uint32_t val) {
+        const uint32_t old = *w;
+        if (old == cmp) *w = val;
+        return old;
+    }
+};
+
+}  // namespace
+
 // walk.cu branch_kernel: one root per thread, the same scratch layout.
 extern "C" void branch_host(const uint8_t* roots, int64_t N, int k,
                             const uint64_t* f0, const uint64_t* r0,
                             const uint64_t* tab, int64_t size, int max_depth,
                             int W, uint64_t* fs, uint64_t* rs, uint8_t* hist,
                             int H, int32_t* depth, int64_t* probes) {
-    nthash::Tables t;
-    nthash::make_tables(t, k);
-    for (int64_t i = 0; i < N; ++i)
-        depth[i] = walk::branch_root(roots + i * k, k, f0[i], r0[i], tab,
-                                     uint64_t(size - 1), t, max_depth, W, N,
-                                     i, fs, rs, hist, H, probes + i);
+    branch_loop(roots, N, k, f0, r0, table_solid(tab, size), max_depth, W,
+                fs, rs, hist, H, depth, probes);
+}
+
+// branch_host on a counting Bloom filter (walk.cu branch_bloom_launch).
+extern "C" void branch_bloom_host(const uint8_t* roots, int64_t N, int k,
+                                  const uint64_t* f0, const uint64_t* r0,
+                                  const uint8_t* counters, int64_t size,
+                                  int hash_k, int num_hashes, int threshold,
+                                  int max_depth, int W, uint64_t* fs,
+                                  uint64_t* rs, uint8_t* hist, int H,
+                                  int32_t* depth, int64_t* probes) {
+    branch_loop(roots, N, k, f0, r0,
+                bloom_solid(counters, size, hash_k, num_hashes, threshold),
+                max_depth, W, fs, rs, hist, H, depth, probes);
 }
 
 // walk.cu walk_kernel: one lane per thread; lanes that are not ACTIVE
@@ -59,18 +128,26 @@ extern "C" void walk_host(uint8_t* buf, int64_t P, int64_t BUF,
                           int8_t* status, const uint64_t* seed_canon,
                           uint8_t* has_prev, const uint64_t* tab,
                           int64_t size, int k, int64_t max_steps) {
-    nthash::Tables t;
-    nthash::make_tables(t, k);
-    for (int64_t lane = 0; lane < P; ++lane) {
-        if (status[lane] != walk::ACTIVE) continue;
-        walk::Lane s{length[lane], f[lane], r[lane], status[lane],
-                     has_prev[lane] != 0};
-        walk::walk_lane(buf + lane * BUF, BUF, s, seed_canon[lane], tab,
-                        uint64_t(size - 1), k, t, max_steps);
-        length[lane] = s.length;
-        f[lane] = s.f;
-        r[lane] = s.r;
-        status[lane] = s.status;
-        has_prev[lane] = s.has_prev;
-    }
+    walk_loop(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+              table_solid(tab, size), k, max_steps);
+}
+
+// walk_host on a counting Bloom filter (walk.cu walk_bloom_launch).
+extern "C" void walk_bloom_host(uint8_t* buf, int64_t P, int64_t BUF,
+                                int64_t* length, uint64_t* f, uint64_t* r,
+                                int8_t* status, const uint64_t* seed_canon,
+                                uint8_t* has_prev, const uint8_t* counters,
+                                int64_t size, int hash_k, int num_hashes,
+                                int threshold, int k, int64_t max_steps) {
+    walk_loop(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+              bloom_solid(counters, size, hash_k, num_hashes, threshold), k,
+              max_steps);
+}
+
+// scatter_max.cu: every update in order, one at a time.
+extern "C" void scatter_max_host(uint8_t* counters, int64_t S,
+                                 const int64_t* idx, const uint8_t* val,
+                                 int64_t Q) {
+    for (int64_t j = 0; j < Q; ++j)
+        scatter::max_update<HostWord>(counters, S, idx[j], val[j]);
 }

@@ -36,6 +36,9 @@ constexpr uint64_t SEED_G = 0x20323ED082572324ULL;
 constexpr uint64_t SEED_T = 0x295549F54BE24456ULL;
 constexpr uint64_t M33 = (1ULL << 33) - 1;
 constexpr uint64_t M31 = (1ULL << 31) - 1;
+// extra Bloom hashes (nthash.hpp multiSeed / multiShift)
+constexpr uint64_t MULTI_SEED = 0x90B45D39FB6DA1FAULL;
+constexpr int MULTI_SHIFT = 27;
 
 // Launch geometry, shared with the host harness: a block of THREADS
 // threads covers TILE consecutive windows of one row, each thread a
@@ -90,6 +93,13 @@ NT_HD void make_tables(Tables& t, int k) {
 }
 
 NT_HD int clamp_code(uint8_t c) { return c < 4 ? int(c) : 4; }
+
+// Extra hash #i of base hash h for k-mers of length k (NTE64,
+// nthash.hpp:337-343; ops/nthash.nte64).  Hash #0 is h itself.
+NT_HD uint64_t nte64(uint64_t h, int k, int i) {
+    const uint64_t t = h * (uint64_t(i) ^ (uint64_t(k) * MULTI_SEED));
+    return t ^ (t >> MULTI_SHIFT);
+}
 
 // Hash nwin >= 1 consecutive windows whose first base is codes[0]
 // (codes[0 .. nwin+k-2] readable).  fwd/rev may be null.

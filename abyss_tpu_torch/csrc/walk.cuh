@@ -4,6 +4,12 @@
 //   * branch_root: dbg/extend.py's `branch_depths` breadth-first
 //     look-ahead, run for one root.
 //
+// Both take the solidity test of a canonical k-mer hash as a template
+// parameter: `TableSolid`, the open-addressing walk table of a sorted
+// filter's solid keys (ops/hash_probe.ProbeSet), or `BloomSolid`, the
+// counting Bloom filter's "min over the H counters >= threshold"
+// (ops/bloom.CountingBloomFilter.contains).
+//
 // Like nthash.cuh, every function is `__host__ __device__` and plain C++
 // otherwise, so g++ compiles it too: the CPU test suite runs both over
 // every lane or root in a host loop and holds the results bit-identical
@@ -18,7 +24,7 @@
 // One step of an ACTIVE lane whose head k-mer ends at buf[length-1]:
 //   * roll the head's (fwd, rev) hash to its 4 successors (append base
 //     c, drop buf[length-k]) and its 4 predecessors (prepend c, drop
-//     buf[length-1]); probe the 8 canonical hashes in the walk table;
+//     buf[length-1]); test the 8 canonical hashes for solidity;
 //   * >= 2 solid predecessors after a known predecessor -> NEED_B;
 //     no solid successor -> DEAD_END; >= 2 -> NEED_F; the one successor
 //     is the seed again -> CYCLE; the buffer is full -> CHUNK_LIMIT;
@@ -61,6 +67,31 @@ NT_HD bool probe(const uint64_t* tab, uint64_t mask, uint64_t q) {
     return hit;
 }
 
+// Solid = held in the walk table.
+struct TableSolid {
+    const uint64_t* tab;  // [size + PROBE]
+    uint64_t mask;        // size - 1
+    NT_HD bool operator()(uint64_t q) const { return probe(tab, mask, q); }
+};
+
+// Solid = each of the H counters at nte64(q, k, i) & mask, i < H, is at
+// least threshold (their minimum is, as CountingBloomFilter.count
+// takes it); stops at the first counter below it.
+struct BloomSolid {
+    const uint8_t* counters;  // [size + 1], the last slot the sink
+    uint64_t mask;            // size - 1
+    int k;                    // the filter's k, which seeds its extra hashes
+    int num_hashes;
+    int threshold;
+    NT_HD bool operator()(uint64_t q) const {
+        for (int i = 0; i < num_hashes; ++i) {
+            const uint64_t h = i == 0 ? q : nthash::nte64(q, k, i);
+            if (int(counters[h & mask]) < threshold) return false;
+        }
+        return true;
+    }
+};
+
 struct Lane {
     int64_t length;   // bases in buf
     uint64_t f, r;    // forward / reverse hash of the head k-mer
@@ -71,10 +102,10 @@ struct Lane {
 // Run lane `s` (its buffer row `buf` of BUF bytes) for up to max_steps
 // steps; returns the steps taken, the last of them the one that stopped
 // the lane if it stopped.
+template <class Solid>
 NT_HD int64_t walk_lane(uint8_t* buf, int64_t BUF, Lane& s,
-                        uint64_t seed_canon, const uint64_t* tab,
-                        uint64_t mask, int k, const nthash::Tables& t,
-                        int64_t max_steps) {
+                        uint64_t seed_canon, const Solid& solid, int k,
+                        const nthash::Tables& t, int64_t max_steps) {
     int64_t n = 0;
     while (n < max_steps && s.status == ACTIVE) {
         ++n;
@@ -86,13 +117,13 @@ NT_HD int64_t walk_lane(uint8_t* buf, int64_t BUF, Lane& s,
         for (int c = 0; c < 4; ++c) {
             fc[c] = fl ^ t.f[c] ^ t.fk[co];
             rc[c] = nthash::sror1(s.r ^ t.rk[c] ^ t.r[co]);
-            if (probe(tab, mask, fc[c] < rc[c] ? fc[c] : rc[c])) {
+            if (solid(fc[c] < rc[c] ? fc[c] : rc[c])) {
                 ++n_fwd;
                 if (base < 0) base = c;
             }
             const uint64_t fb = nthash::sror1(s.f ^ t.fk[c] ^ t.f[cb]);
             const uint64_t rb = rl ^ t.r[c] ^ t.rk[cb];
-            n_back += probe(tab, mask, fb < rb ? fb : rb);
+            n_back += solid(fb < rb ? fb : rb);
         }
         if (s.has_prev && n_back >= 2) { s.status = NEED_B; break; }
         if (n_fwd == 0) { s.status = DEAD_END; break; }
@@ -114,7 +145,7 @@ NT_HD int64_t walk_lane(uint8_t* buf, int64_t BUF, Lane& s,
 // first W solid children in (parent, base) order, as the plain version's
 // stable compaction keeps them.  Returns the number of steps, up to
 // max_depth, after which the frontier still holds a live k-mer; *probes
-// receives the number of table probes made.
+// receives the number of solidity tests made.
 //
 // A frontier k-mer is its hashes plus the bases it will drop: at step
 // `step` it drops root[step] while step < k, else the base its path
@@ -123,9 +154,10 @@ NT_HD int64_t walk_lane(uint8_t* buf, int64_t BUF, Lane& s,
 // by the caller's thread only, in two ping-pong halves b = 0, 1, with
 // the root index i innermost so that a warp's accesses coalesce:
 //   fs, rs:  [2][W][N] hashes;   hist: [2][W][H][N] appended bases.
+template <class Solid>
 NT_HD int branch_root(const uint8_t* root, int k, uint64_t f0, uint64_t r0,
-                      const uint64_t* tab, uint64_t mask,
-                      const nthash::Tables& t, int max_depth, int W,
+                      const Solid& solid, const nthash::Tables& t,
+                      int max_depth, int W,
                       int64_t N, int64_t i, uint64_t* fs, uint64_t* rs,
                       uint8_t* hist, int H, int64_t* probes) {
 #define BR_F(b, w) ((int64_t(b) * W + (w)) * N + i)
@@ -147,7 +179,7 @@ NT_HD int branch_root(const uint8_t* root, int k, uint64_t f0, uint64_t r0,
                 const uint64_t fc = fl ^ t.f[c] ^ t.fk[co];
                 const uint64_t rc = nthash::sror1(r ^ t.rk[c] ^ t.r[co]);
                 ++np;
-                if (!probe(tab, mask, fc < rc ? fc : rc)) continue;
+                if (!solid(fc < rc ? fc : rc)) continue;
                 fs[BR_F(nxt, m)] = fc;
                 rs[BR_F(nxt, m)] = rc;
                 for (int s = 0; s < keep; ++s)

@@ -1,12 +1,14 @@
 """Bloom-filter de Bruijn graph unitig assembly (the `abyss-bloom-dbg` model).
 
-Port of abyss_tpu/dbg/bloom_dbg.py, with the sorted-table filter
-(`filter_mode="sorted"`, the default).  Two streaming passes, as in the
+Port of abyss_tpu/dbg/bloom_dbg.py.  Two streaming passes, as in the
 reference driver (BloomDBG/bloom-dbg.h:902-1077):
 
   pass 1  stream reads -> count canonical k-mer hashes (the CUDA ntHash
-          kernel on the GPU, then sort + run-length encoding) into the
-          solid-k-mer table;
+          kernel on the GPU) into the solid-k-mer structure: the exact
+          sorted table (`filter_mode="sorted"`, the default: sort +
+          run-length encoding) or the reference's counting Bloom filter
+          (`filter_mode="bloom"`: conservative inserts, whose write side
+          is the CUDA scatter-max kernel on the GPU);
   pass 2  stream reads -> classify (short / non-ACGT / blunt / not-solid
           / already-assembled), seed eligible reads with their first
           unassembled k-mer, extend seeds left+right in lockstep to
@@ -68,33 +70,40 @@ class Contig:
 
 def load_filter(batches: Iterable[fastx.ReadBatch], params: AssemblyParams,
                 counters: AssemblyCounters | None = None, device="cuda"):
-    """Pass 1: build the solid-k-mer table on `device` (cf.
+    """Pass 1: build the solid-k-mer structure on `device` (cf.
     loadBloomFilter, BloomDBG/BloomIO.h:97).
 
-    Only filter_mode="sorted" is ported; "bloom" needs the counting
-    Bloom filter and its scatter-max kernel (ROADMAP.md, queue B
-    item 2)."""
-    if params.filter_mode != "sorted":
-        raise NotImplementedError(
-            f"filter_mode={params.filter_mode!r}: the counting Bloom filter "
-            "and its scatter-max kernel are not ported yet (ROADMAP.md, "
-            "queue B item 2); use filter_mode='sorted'")
-    from ..ops.sorted_filter import SortedKmerCounter
+    params.filter_mode picks it: "sorted" (default) counts exactly with
+    device sorts (a SortedKmerFilter); "bloom" keeps the reference's
+    counting Bloom filter, sized from params.bloom_bytes (8/9 of the
+    budget)."""
     dev = resolve_device(device)
-    ctr = SortedKmerCounter(params.k, params.min_cov)
+    if params.filter_mode == "sorted":
+        from ..ops.sorted_filter import SortedKmerCounter
+        ctr = SortedKmerCounter(params.k, params.min_cov)
+        add, finish = ctr.add, lambda: ctr.finalize(dev)
+    elif params.filter_mode == "bloom":
+        counting_size, _ = bloom_ops.recommended_sizes(params.bloom_bytes)
+        cbf = bloom_ops.CountingBloomFilter.create(
+            counting_size, params.k, params.num_hashes, params.min_cov,
+            device=dev)
+        add, finish = cbf.insert, lambda: cbf
+    else:
+        raise ValueError(f"filter_mode must be 'sorted' or 'bloom', got "
+                         f"{params.filter_mode!r}")
     # the k-mer tally stays on the device; one scalar sync at the end
     kmer_tally = None
     for batch in batches:
         canon, valid = nthash.canonical_hashes(
             torch.from_numpy(batch.codes).to(dev), params.k)
-        ctr.add(canon, valid)
+        add(canon, valid)
         if counters is not None:
             counters.read_count += batch.num_reads
             v = valid.sum()
             kmer_tally = v if kmer_tally is None else kmer_tally + v
     if counters is not None and kmer_tally is not None:
         counters.kmers_loaded += int(kmer_tally)
-    return ctr.finalize(dev)
+    return finish()
 
 
 def _classify_batch(cbf, visited, codes, lengths, k, fp_look_ahead,

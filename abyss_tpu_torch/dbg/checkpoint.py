@@ -5,7 +5,9 @@ every N reads, atomically (tmp + rename) persist the solid-k-mer table,
 the visited filter, progress counters and the partial contig FASTA; on
 restart, detect a valid checkpoint and resume.  The files and their
 layout are the JAX package's, so either package resumes from the
-other's checkpoint.  Only the sorted-table filter is ported.
+other's checkpoint: `counting.npy` holds the sorted table as stacked
+uint64 (kmers, counts) (`sorted_mode` true in state.json) or the
+counting Bloom filter's uint8 counters (`sorted_mode` false).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import numpy as np
 
 from .. import convert, u64
-from ..ops.bloom import BitBloomFilter
+from ..ops.bloom import BitBloomFilter, CountingBloomFilter
 from ..ops.sorted_filter import SortedKmerFilter
 
 FILES = ("counting.npy", "visited.npy", "state.json", "contigs.fa")
@@ -27,23 +29,25 @@ def _tmp(path: str) -> str:
     return path + ".tmp"
 
 
-def save(ckpt_dir: str, cbf: SortedKmerFilter, visited: BitBloomFilter,
-         reads_processed: int, counters: dict,
+def save(ckpt_dir: str, cbf: SortedKmerFilter | CountingBloomFilter,
+         visited: BitBloomFilter, reads_processed: int, counters: dict,
          partial_contigs_path: str | None = None):
-    """Atomically write a checkpoint (Checkpoint::create semantics); the
-    sorted table is saved as stacked uint64 (kmers, counts)."""
-    if not isinstance(cbf, SortedKmerFilter):
-        raise NotImplementedError(
-            "checkpoints of the counting Bloom filter are not ported yet")
+    """Atomically write a checkpoint (Checkpoint::create semantics)."""
+    sorted_mode = isinstance(cbf, SortedKmerFilter)
+    if sorted_mode:
+        counting = np.stack([u64.to_numpy(cbf.kmers),
+                             cbf.counts.cpu().numpy().astype(np.uint64)])
+    elif isinstance(cbf, CountingBloomFilter):
+        counting = cbf.counters.cpu().numpy()
+    else:
+        raise TypeError(f"cannot checkpoint a {type(cbf).__name__}")
     os.makedirs(ckpt_dir, exist_ok=True)
-    np.save(_tmp(os.path.join(ckpt_dir, "counting.npy")),
-            np.stack([u64.to_numpy(cbf.kmers),
-                      cbf.counts.cpu().numpy().astype(np.uint64)]))
+    np.save(_tmp(os.path.join(ckpt_dir, "counting.npy")), counting)
     np.save(_tmp(os.path.join(ckpt_dir, "visited.npy")),
             visited.bits.cpu().numpy())
     state = dict(reads_processed=reads_processed, counters=counters,
                  k=cbf.k, num_hashes=cbf.num_hashes,
-                 threshold=cbf.threshold, sorted_mode=True)
+                 threshold=cbf.threshold, sorted_mode=sorted_mode)
     with open(_tmp(os.path.join(ckpt_dir, "state.json")), "w") as f:
         json.dump(state, f)
     contigs_dst = os.path.join(ckpt_dir, "contigs.fa")
@@ -68,16 +72,16 @@ def load(ckpt_dir: str, device="cuda"):
     """Returns (cbf, visited, reads_processed, counters) on `device`."""
     with open(os.path.join(ckpt_dir, "state.json")) as f:
         state = json.load(f)
-    if not state.get("sorted_mode"):
-        raise NotImplementedError(
-            f"{ckpt_dir}: checkpoints of the counting Bloom filter are not "
-            "ported yet (ROADMAP.md, queue B item 2)")
     counting = np.load(os.path.join(ckpt_dir, "counting.npy"))
     visited = np.load(os.path.join(ckpt_dir, "visited.npy"))
-    cbf, vis = convert.from_numpy_state(
-        counting[0], counting[1].astype(np.int32), k=state["k"],
-        threshold=state["threshold"], visited_bits=visited,
-        num_hashes=state["num_hashes"], device=device)
+    kw = dict(k=state["k"], threshold=state["threshold"],
+              visited_bits=visited, num_hashes=state["num_hashes"],
+              device=device)
+    if state.get("sorted_mode"):
+        cbf, vis = convert.from_numpy_state(
+            counting[0], counting[1].astype(np.int32), **kw)
+    else:
+        cbf, vis = convert.counting_filter_from_numpy(counting, **kw)
     return cbf, vis, state["reads_processed"], state["counters"]
 
 

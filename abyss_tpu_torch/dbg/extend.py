@@ -19,7 +19,9 @@ the stuck minority between device loops.
 PyTorch idiom: on a CUDA device the JAX loops are hand-written kernels
 (csrc/walk.cu): `fast_extend`'s `lax.while_loop` is one launch that
 walks each lane on its own thread, and `branch_depths`' `lax.scan` one
-launch that searches from each root on its own thread.  On the CPU they
+launch that searches from each root on its own thread; each has a
+variant for the walk table of a sorted filter and one for a counting
+Bloom filter (`ext.walk_filter` picks the structure).  On the CPU they
 are Python loops of tensor ops (`fast_extend_plain`,
 `branch_depths_plain`, the versions the kernels are held against).
 Testing "any lane still ACTIVE" there is a sync, so the walk loop tests
@@ -40,6 +42,7 @@ from .. import u64
 from ..core import alphabet
 from ..ops import hash_probe as hp
 from ..ops import kernels, nthash
+from ..ops.bloom import CountingBloomFilter
 
 # path status codes (superset of PathExtensionResultCode, ExtendPath.h:47-57)
 ACTIVE = 0
@@ -70,7 +73,8 @@ def bucket_size(n: int, lo: int = 64) -> int:
 def walk_filter(cbf):
     """The solidity structure to probe inside the walk loops: an exact
     open-addressing table of a sorted filter's solid keys (one [C, 8]
-    gather per probe), else the filter itself."""
+    gather per probe), else the filter itself (a counting Bloom filter
+    probes its own counters)."""
     if hasattr(cbf, "kmers") and hasattr(cbf, "threshold"):
         return hp.ProbeSet(hp.solid_table(cbf))
     return cbf
@@ -201,19 +205,29 @@ def fast_extend(cbf, st: ExtendState, k: int,
 
     On a CUDA device this is one launch of the walk kernel
     (csrc/walk.cu, a thread per lane, updating the state in place; the
-    walk filter must be the ProbeSet of ext.walk_filter).  On the CPU
-    it is the plain loop of `_step`, run until no lane is ACTIVE or
-    max_steps steps have run; the condition is tested after 1, 2, 4,
-    ... CHECK_MAX steps (extra steps are no-ops on non-ACTIVE lanes).
-    Both update st.buf in place."""
+    walk filter must be ext.walk_filter's ProbeSet or a
+    CountingBloomFilter).  On the CPU it is the plain loop of `_step`,
+    run until no lane is ACTIVE or max_steps steps have run; the
+    condition is tested after 1, 2, 4, ... CHECK_MAX steps (extra steps
+    are no-ops on non-ACTIVE lanes).  Both update st.buf in place."""
     if st.buf.is_cuda:
-        if not isinstance(cbf, hp.ProbeSet):
-            raise TypeError("fast_extend on a CUDA device walks a ProbeSet "
-                            f"(ext.walk_filter), got {type(cbf).__name__}")
-        kernels.walk(cbf.tab, st.buf, st.length, st.f, st.r, st.status,
-                     st.seed_canon, st.has_prev, k, max_steps)
+        kernels.walk(_kernel_solid("fast_extend", cbf), st.buf, st.length,
+                     st.f, st.r, st.status, st.seed_canon, st.has_prev, k,
+                     max_steps)
         return st
     return fast_extend_plain(cbf, st, k, max_steps)
+
+
+def _kernel_solid(fn: str, cbf):
+    """What the walk kernels probe for walk filter `cbf`: a ProbeSet's
+    table or a CountingBloomFilter; raises for anything else."""
+    if isinstance(cbf, hp.ProbeSet):
+        return cbf.tab
+    if isinstance(cbf, CountingBloomFilter):
+        return cbf
+    raise TypeError(f"{fn} on a CUDA device probes a ProbeSet "
+                    "(ext.walk_filter) or a CountingBloomFilter, got "
+                    f"{type(cbf).__name__}")
 
 
 def fast_extend_plain(cbf, st: ExtendState, k: int,
@@ -244,15 +258,13 @@ def branch_depths(cbf, root_codes: torch.Tensor, root_hashes, k: int,
 
     root_codes: uint8[N, k]; root_hashes: (f, r) int64[N].
     Returns int32[N].  On a CUDA device this is one launch of the branch
-    kernel (csrc/walk.cu, a thread per root; the walk filter must be the
-    ProbeSet of ext.walk_filter); on the CPU, branch_depths_plain."""
+    kernel (csrc/walk.cu, a thread per root; the walk filter must be
+    ext.walk_filter's ProbeSet or a CountingBloomFilter); on the CPU,
+    branch_depths_plain."""
     f0, r0 = root_hashes
     if f0.is_cuda:
-        if not isinstance(cbf, hp.ProbeSet):
-            raise TypeError("branch_depths on a CUDA device probes a "
-                            "ProbeSet (ext.walk_filter), got "
-                            f"{type(cbf).__name__}")
-        return kernels.branch(cbf.tab, root_codes.contiguous(),
+        return kernels.branch(_kernel_solid("branch_depths", cbf),
+                              root_codes.contiguous(),
                               f0.contiguous(), r0.contiguous(), k,
                               max_depth, width)
     return branch_depths_plain(cbf, root_codes, root_hashes, k, max_depth,

@@ -29,7 +29,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {"nthash": 0, "walk": 0, "branch": 0}
+launches = {"nthash": 0, "walk": 0, "branch": 0, "walk_bloom": 0,
+            "branch_bloom": 0, "scatter_max": 0}
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
 
@@ -80,8 +81,9 @@ def _load(name: str, source: str, deps: list[str], bind) -> ctypes.CDLL:
 
 def build_all() -> None:
     """Build every kernel library at once, one nvcc process each."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(nthash_lib), pool.submit(walk_lib)]:
+    libs = (nthash_lib, walk_lib, scatter_max_lib)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
 
 
@@ -145,18 +147,18 @@ def nthash(codes: torch.Tensor, k: int, strands: bool = False):
 
 
 def _bind_walk(lib: ctypes.CDLL) -> None:
-    lib.walk_launch.restype = ctypes.c_int
-    lib.walk_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_void_p]
-    lib.branch_launch.restype = ctypes.c_int
-    lib.branch_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lane = [P, I64, I64, P, P, P, P, P, P]
+    root = [P, I64, I, P, P]
+    branch_rest = [I, I, P, P, P, I, P, P, P]
+    for name, args in (
+            ("walk_launch", lane + [P, I64, I, I64, P]),
+            ("walk_bloom_launch", lane + [P, I64, I, I, I, I, I64, P]),
+            ("branch_launch", root + [P, I64] + branch_rest),
+            ("branch_bloom_launch", root + [P, I64, I, I, I] + branch_rest)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
 
 
 def walk_lib() -> ctypes.CDLL:
@@ -178,15 +180,33 @@ def _check(kernel: str, dev: torch.device, args: dict) -> None:
             raise ValueError(f"{kernel} kernel: {name} must be contiguous")
 
 
-def _table_size(kernel: str, tab: torch.Tensor) -> int:
-    size = tab.shape[0] - 8
-    if tab.dim() != 1 or size < 1 or size & (size - 1):
-        raise ValueError(f"{kernel} kernel: tab must be [size + 8], size a "
-                         "power of two")
-    return size
+def _solid(kernel: str, solid, args: dict):
+    """The launch arguments and launch-count name of a walk kernel's
+    solidity test: `solid` is the walk table (int64 [size + 8], size a
+    power of two, ops/hash_probe.ProbeSet.tab) or a counting Bloom
+    filter (its counters uint8 [size + 1], size a power of two, and its
+    k, num_hashes and threshold).  Adds the array to `args` for _check."""
+    if isinstance(solid, torch.Tensor):
+        size = solid.shape[0] - 8
+        if solid.dim() != 1 or size < 1 or size & (size - 1):
+            raise ValueError(f"{kernel} kernel: tab must be [size + 8], size "
+                             "a power of two")
+        args["tab"] = (solid, torch.int64)
+        return [solid.data_ptr(), size], kernel
+    counters = solid.counters
+    size = counters.shape[0] - 1
+    if counters.dim() != 1 or size < 1 or size & (size - 1):
+        raise ValueError(f"{kernel} kernel: counters must be [size + 1], size "
+                         "a power of two")
+    if not (0 < solid.num_hashes < 1 << 16 and 0 <= solid.k < 1 << 16
+            and -(1 << 16) < solid.threshold < 1 << 16):
+        raise ValueError(f"{kernel} kernel: filter parameters out of range")
+    args["counters"] = (counters, torch.uint8)
+    return [counters.data_ptr(), size, solid.k, solid.num_hashes,
+            solid.threshold], kernel + "_bloom"
 
 
-def walk(tab: torch.Tensor, buf: torch.Tensor, length: torch.Tensor,
+def walk(solid, buf: torch.Tensor, length: torch.Tensor,
          f: torch.Tensor, r: torch.Tensor, status: torch.Tensor,
          seed_canon: torch.Tensor, has_prev: torch.Tensor, k: int,
          max_steps: int) -> None:
@@ -194,23 +214,25 @@ def walk(tab: torch.Tensor, buf: torch.Tensor, length: torch.Tensor,
     (csrc/walk.cu): the same lane states as max_steps lock steps of
     dbg/extend.fast_extend's plain loop.
 
-    tab: int64 [size + 8] walk table (ops/hash_probe.build); buf: uint8
-    [P, BUF]; length/f/r/seed_canon: int64 [P]; status: int8 [P];
-    has_prev: bool [P]; all contiguous on one CUDA device."""
-    args = dict(tab=(tab, torch.int64), buf=(buf, torch.uint8),
+    solid: the walk table (int64 [size + 8], ops/hash_probe.build) or a
+    CountingBloomFilter (ops/bloom), whose variant counts as
+    launches["walk_bloom"]; buf: uint8 [P, BUF]; length/f/r/seed_canon:
+    int64 [P]; status: int8 [P]; has_prev: bool [P]; all contiguous on
+    one CUDA device."""
+    args = dict(buf=(buf, torch.uint8),
                 length=(length, torch.int64), f=(f, torch.int64),
                 r=(r, torch.int64), status=(status, torch.int8),
                 seed_canon=(seed_canon, torch.int64),
                 has_prev=(has_prev, torch.bool))
+    solid_args, name = _solid("walk", solid, args)
     dev = buf.device
     _check("walk", dev, args)
     if buf.dim() != 2:
         raise ValueError("walk kernel: buf must be [P, BUF]")
     P, BUF = buf.shape
-    for name in ("length", "f", "r", "status", "seed_canon", "has_prev"):
-        if tuple(args[name][0].shape) != (P,):
-            raise ValueError(f"walk kernel: {name} must have shape [{P}]")
-    size = _table_size("walk", tab)
+    for n in ("length", "f", "r", "status", "seed_canon", "has_prev"):
+        if tuple(args[n][0].shape) != (P,):
+            raise ValueError(f"walk kernel: {n} must have shape [{P}]")
     if not 1 <= k <= BUF or P >= 1 << 31:
         raise ValueError(f"walk kernel: need 1 <= k <= BUF and P < 2^31, "
                          f"got k={k}, buf [{P}, {BUF}]")
@@ -219,37 +241,39 @@ def walk(tab: torch.Tensor, buf: torch.Tensor, length: torch.Tensor,
     lib = walk_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.walk_launch(
+        err = getattr(lib, name + "_launch")(
             buf.data_ptr(), P, BUF, length.data_ptr(), f.data_ptr(),
             r.data_ptr(), status.data_ptr(), seed_canon.data_ptr(),
-            has_prev.data_ptr(), tab.data_ptr(), size, k, max_steps, stream)
+            has_prev.data_ptr(), *solid_args, k, max_steps, stream)
     if err != 0:
-        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
-    launches["walk"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
 
 
-def branch(tab: torch.Tensor, roots: torch.Tensor, f0: torch.Tensor,
+def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
            r0: torch.Tensor, k: int, max_depth: int, width: int,
            probes: torch.Tensor | None = None) -> torch.Tensor:
     """Forward look-ahead depth of each root k-mer (csrc/walk.cu
     branch_kernel): the same int32 [N] as dbg/extend.branch_depths_plain.
 
-    tab: int64 [size + 8] walk table; roots: uint8 [N, k]; f0/r0: int64
-    [N] the roots' hashes; all contiguous on one CUDA device.  `probes`
-    (int64 [N]), if given, receives the table probes each root made."""
+    solid: the walk table or a CountingBloomFilter, as for `walk` (the
+    Bloom variant counts as launches["branch_bloom"]); roots: uint8
+    [N, k]; f0/r0: int64 [N] the roots' hashes; all contiguous on one
+    CUDA device.  `probes` (int64 [N]), if given, receives the solidity
+    tests each root made."""
     dev = roots.device
-    args = dict(tab=(tab, torch.int64), roots=(roots, torch.uint8),
+    args = dict(roots=(roots, torch.uint8),
                 f0=(f0, torch.int64), r0=(r0, torch.int64))
     if probes is not None:
         args["probes"] = (probes, torch.int64)
+    solid_args, name = _solid("branch", solid, args)
     _check("branch", dev, args)
     if roots.dim() != 2 or roots.shape[1] != k or k < 1:
         raise ValueError(f"branch kernel: roots must be [N, k={k}]")
     N = roots.shape[0]
-    for name in ("f0", "r0", "probes"):
-        if name in args and tuple(args[name][0].shape) != (N,):
-            raise ValueError(f"branch kernel: {name} must have shape [{N}]")
-    size = _table_size("branch", tab)
+    for n in ("f0", "r0", "probes"):
+        if n in args and tuple(args[n][0].shape) != (N,):
+            raise ValueError(f"branch kernel: {n} must have shape [{N}]")
     if width < 1 or max_depth < 0 or N >= 1 << 31:
         raise ValueError(f"branch kernel: need width >= 1, max_depth >= 0 "
                          f"and N < 2^31, got {width}, {max_depth}, {N}")
@@ -264,13 +288,58 @@ def branch(tab: torch.Tensor, roots: torch.Tensor, f0: torch.Tensor,
     lib = walk_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.branch_launch(
+        err = getattr(lib, name + "_launch")(
             roots.data_ptr(), N, k, f0.data_ptr(), r0.data_ptr(),
-            tab.data_ptr(), size, max_depth, width, fs.data_ptr(),
+            *solid_args, max_depth, width, fs.data_ptr(),
             rs.data_ptr(), hist.data_ptr() if H else None, H,
             depth.data_ptr(), probes.data_ptr() if probes is not None
             else None, stream)
     if err != 0:
-        raise RuntimeError(f"branch kernel launch failed: CUDA error {err}")
-    launches["branch"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
     return depth
+
+
+def _bind_scatter_max(lib: ctypes.CDLL) -> None:
+    lib.scatter_max_launch.restype = ctypes.c_int
+    lib.scatter_max_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p]
+
+
+def scatter_max_lib() -> ctypes.CDLL:
+    """Build (first call) and bind csrc/scatter_max.cu."""
+    return _load("scatter_max", "scatter_max.cu", ["scatter_max.cuh"],
+                 _bind_scatter_max)
+
+
+def scatter_max(counters: torch.Tensor, idx: torch.Tensor,
+                val: torch.Tensor) -> None:
+    """counters[i] <- max(counters[i], val[j]) for every idx[j] == i, in
+    place (csrc/scatter_max.cu), dropping every idx[j] outside [0, S),
+    S the largest power of two <= len(counters): the same as
+    ops/scatter_max.scatter_max_u8_plain.
+
+    counters: uint8 [n]; idx: int64 [Q]; val: uint8 [Q]; all contiguous
+    on one CUDA device."""
+    dev = counters.device
+    _check("scatter_max", dev, dict(counters=(counters, torch.uint8),
+                                    idx=(idx, torch.int64),
+                                    val=(val, torch.uint8)))
+    if counters.dim() != 1 or counters.shape[0] < 1:
+        raise ValueError("scatter_max kernel: counters must be [n], n >= 1")
+    if idx.dim() != 1 or tuple(val.shape) != tuple(idx.shape):
+        raise ValueError("scatter_max kernel: idx and val must be [Q]")
+    S = 1 << (counters.shape[0].bit_length() - 1)
+    Q = idx.shape[0]
+    if Q == 0:
+        return
+    lib = scatter_max_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.scatter_max_launch(counters.data_ptr(), S, idx.data_ptr(),
+                                     val.data_ptr(), Q, stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_max kernel launch failed: CUDA error "
+                           f"{err}")
+    launches["scatter_max"] += 1

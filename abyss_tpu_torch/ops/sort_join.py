@@ -1,9 +1,11 @@
 """Bulk k-mer count lookup as a sort-merge join.
 
-Port of the parts of abyss_tpu/ops/sort_join.py that the sorted filter
-calls: the exact 64-bit join (`join_counts`) and the packed 40-bit
-prefix probe (`pack_table`, `join_counts_packed`, `join_solid_packed`;
-the last answers by a search instead of a join, see there).
+Port of the parts of abyss_tpu/ops/sort_join.py that the filters
+call: the exact 64-bit join (`join_counts`), the packed 40-bit prefix
+probe (`pack_table`, `join_counts_packed`, `join_solid_packed`; the
+last answers by a search instead of a join, see there), and the dense
+u8 gather and scatter-max by merging (`dense_gather_u8`,
+`dense_scatter_max_u8`, the counting Bloom filter's update_mode="sort").
 
   1. concatenate table words and query words, so that a table row sorts
      before the equal query keys;
@@ -159,3 +161,66 @@ def join_solid_packed(packed_table: torch.Tensor, queries: torch.Tensor,
     idx = torch.clamp(u64.usearchsorted(prefixes, q),
                       max=prefixes.shape[0] - 1)
     return prefixes[idx] == q
+
+
+# Dense-array gather / scatter-max by sorting: the counting Bloom
+# filter's update_mode="sort".  Both accesses become a merge: sort the
+# query or update stream together with one marker word per dense slot,
+# answer with a running max of slot-tagged values, and restore order
+# with a second sort.  Words: [63:33] slot | [32] flag | [31:0] payload.
+
+
+def dense_gather_u8(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values[q] = dense[idx[q]] without a gather.
+
+    dense: uint8[M] (M < 2^31); idx: integer [Q] in [0, M), Q < 2^32.
+    Returns uint8[Q]."""
+    M = dense.shape[0]
+    Q = idx.shape[0]
+    dev = dense.device
+    slot_m = torch.arange(M, dtype=torch.int64, device=dev)
+    # markers (flag 0) sort before queries (flag 1) within a slot
+    k_m = (slot_m << 33) | dense.to(torch.int64)
+    k_q = (idx.to(torch.int64) << 33) | (1 << 32) | torch.arange(
+        Q, dtype=torch.int64, device=dev)
+    s, _ = u64.usort(torch.cat([k_m, k_q]))
+    slot = u64.srl(s, 33)
+    is_q = (u64.srl(s, 32) & 1) != 0
+    enc = torch.where(is_q, torch.zeros_like(s), (slot << 8) | (s & 0xFF))
+    run = running_max(enc)
+    val = torch.where(u64.srl(run, 8) == slot, run & 0xFF,
+                      torch.zeros_like(run))
+    # order-restoring sort: queries keyed by original position
+    back = torch.where(is_q, ((s & _LO32) << 8) | val,
+                       torch.full_like(s, u64.ALL_ONES))
+    out, _ = u64.usort(back)
+    return (out[:Q] & 0xFF).to(torch.uint8)
+
+
+def dense_scatter_max_u8(dense: torch.Tensor, idx: torch.Tensor,
+                         vals: torch.Tensor) -> torch.Tensor:
+    """dense[idx[q]] = max(dense[idx[q]], vals[q]) without a scatter.
+
+    dense: uint8[M]; idx: integer [Q] in [0, M); vals: uint8[Q].
+    Returns a new uint8[M]."""
+    M = dense.shape[0]
+    dev = dense.device
+    slot_m = torch.arange(M, dtype=torch.int64, device=dev)
+    # updates (flag 0) sort before their slot's marker (flag 1), so a
+    # forward running max over slot-tagged update values is complete
+    # when it reaches the marker
+    k_m = (slot_m << 33) | (1 << 32) | dense.to(torch.int64)
+    k_u = (idx.to(torch.int64) << 33) | vals.to(torch.int64)
+    s, _ = u64.usort(torch.cat([k_m, k_u]))
+    slot = u64.srl(s, 33)
+    is_m = (u64.srl(s, 32) & 1) != 0
+    enc = torch.where(is_m, torch.zeros_like(s), (slot << 8) | (s & 0xFF))
+    run = running_max(enc)
+    upd = torch.where(u64.srl(run, 8) == slot, run & 0xFF,
+                      torch.zeros_like(run))
+    newval = torch.maximum(s & 0xFF, upd)
+    # markers carry the result back out, keyed by slot
+    back = torch.where(is_m, (slot << 8) | newval,
+                       torch.full_like(s, u64.ALL_ONES))
+    out, _ = u64.usort(back)
+    return (out[:M] & 0xFF).to(torch.uint8)

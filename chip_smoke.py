@@ -24,9 +24,22 @@ Phases, each printing one JSON line:
           4096 lanes seeded from the first k-mers of its first batch of
           reads, with its 1024-step budget; the look-ahead on the 4 branch
           roots of each walked lane's head.
+  bloom   the same reads and checks through the counting Bloom filter
+          (filter_mode="bloom") at the reference's E. coli budget of
+          2 GiB (2^30 counters); the launch counts are reset and read
+          around it as around main.  Then:
+  scatter the scatter-max kernel against its plain version, bit for bit,
+          with timings, replaying one real pass-1 batch of that run on
+          the counters as they stood before it;
+          the walk and look-ahead kernels' Bloom variants against their
+          plain versions in that run's counting filter, seeded as above;
+  tool    `bloom build -t counting -k 31 -b 1G` (the abyss-bloom CLI)
+          on the same reads, with its launch counts, and its counters
+          byte-identical to the bloom phase's pass-1 filter.
 
-Then one `kernels` JSON line (each kernel's launches on the main path,
-error against its plain version, times and bound), and as the last line
+Then one `kernels` JSON line (each kernel's launches on the path that
+runs it, error against its plain version, times and bound), and as the
+last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 the last line.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero at once.
@@ -52,6 +65,16 @@ NTHASH_OPS_PER_WINDOW = 40      # one roll: 2 split-rotations, 6 xor, ...
 WALK_OPS_PER_STEP = 400
 WALK_BYTES_PER_STEP = 8 * 64 + 2  # 8 probed 64-byte windows, 2 buf bases
 BRANCH_OPS_PER_PROBE = 50         # a roll, a splitmix64, 8 slot compares
+# In a counting Bloom filter a solidity test reads 1 to H counters at
+# hashed places: at least one 32-byte sector each
+WALK_BLOOM_BYTES_PER_STEP = 8 * 32 + 2
+BRANCH_BLOOM_BYTES_PER_PROBE = 32
+SECTOR_BYTES = 32                 # a random byte update reads + writes one
+# the reference README's E. coli run, "k=96 B=2G" (SURVEY.md:537): 8/9 of
+# it gives 2^30 one-byte counters
+BLOOM_BYTES = 2 << 30
+BLOOM_TOOL_SIZE = "1G"            # bloom build -b: the same 2^30 counters
+CAPTURE_BATCH = 150               # the pass-1 batch the scatter phase replays
 # stage 1 alone breaks unitigs at every recurrent read error: the JAX
 # package's bloom-dbg covers 0.834 (200 kbp) and 0.860 (1 Mbp) of the
 # genome with contigs >= 500 bp on this sampler's reads (PERF.md), the
@@ -194,17 +217,25 @@ def phase_kernel(B: int = 4096, L: int = 512) -> tuple[dict, dict]:
                 ), res[31]
 
 
+def _solid(wf) -> tuple:
+    """(what the walk kernels probe, kernel-name suffix) for a path's
+    walk filter: a ProbeSet's table, or a counting Bloom filter."""
+    return (wf.tab, "") if hasattr(wf, "tab") else (wf, "_bloom")
+
+
 def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
-    """The walk kernel against fast_extend_plain on the card, in the main
-    path's walk table `wf`: P lanes seeded with the first k-mer of each
-    read of its first batch, with the main path's k, buffer and step
-    budget (k + chunk bases, chunk steps)."""
+    """The walk kernel against fast_extend_plain on the card, in a path's
+    walk filter `wf` (the sorted path's walk table, or the Bloom path's
+    counting filter): P lanes seeded with the first k-mer of each read
+    of its first batch, with the path's k, buffer and step budget
+    (k + chunk bases, chunk steps)."""
     import numpy as np
     import torch
     from abyss_tpu_torch.dbg import extend as ext
     from abyss_tpu_torch.io import read_batches
     from abyss_tpu_torch.ops import kernels
-    dev = wf.tab.device
+    dev = wf.device
+    solid, variant = _solid(wf)
     k, steps = params.k, params.chunk
     first = next(iter(read_batches(paths, P, params.max_read_len)))
     st0 = ext.init_state(np.ascontiguousarray(first.codes[:, :k]), k + steps,
@@ -215,7 +246,7 @@ def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
         return st0._replace(**{n: getattr(st0, n).clone() for n in fields})
 
     kern = fresh()
-    kernels.walk(wf.tab, kern.buf, kern.length, kern.f, kern.r, kern.status,
+    kernels.walk(solid, kern.buf, kern.length, kern.f, kern.r, kern.status,
                  kern.seed_canon, kern.has_prev, k, steps)
     plain = ext.fast_extend_plain(wf, fresh(), k, steps)
     torch.cuda.synchronize()
@@ -231,7 +262,8 @@ def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
     # steps the lanes took: their advances, plus the step that stopped them
     adv = (plain.length - st0.length).cpu().numpy()
     lane_steps = int((adv + (status != ext.ACTIVE)).sum())
-    nbytes = (lane_steps * WALK_BYTES_PER_STEP + int(adv.sum())
+    per_step = WALK_BLOOM_BYTES_PER_STEP if variant else WALK_BYTES_PER_STEP
+    nbytes = (lane_steps * per_step + int(adv.sum())
               + 2 * P * (8 * 3 + 2) + P * 8)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = lane_steps * WALK_OPS_PER_STEP / INT_OPS_PER_S * 1e3
@@ -244,13 +276,15 @@ def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
         flush_buf.fill_(1)
 
     ms = median_ms(lambda: kernels.walk(
-        wf.tab, work.buf, work.length, work.f, work.r, work.status,
+        solid, work.buf, work.length, work.f, work.r, work.status,
         work.seed_canon, work.has_prev, k, steps), 10, flush=reset)
     plain_ms = median_ms(lambda: ext.fast_extend_plain(wf, work, k, steps),
                          3, flush=reset)
-    row = dict(phase="kernel", kernel="walk", lanes=P, buf=k + steps, k=k,
-               max_steps=steps,
-               table_slots=int(wf.tab.shape[0]), lane_steps=lane_steps,
+    row = dict(phase="kernel", kernel="walk" + variant, lanes=P,
+               buf=k + steps, k=k, max_steps=steps,
+               filter_bytes=int(solid.numel() if variant == "" else
+                                solid.counters.numel()),
+               lane_steps=lane_steps,
                outcomes={ext.STATUS_NAMES[int(c)]: int((status == c).sum())
                          for c in np.unique(status)},
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
@@ -263,10 +297,11 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
     """The branch kernel against branch_depths_plain on the card: the 4
     forward branch roots of each walked lane's head k-mer (as _resolve
     builds them for a fork), searched to depth trim = k with the main
-    path's frontier width."""
+    path's frontier width, in the walk filter the lanes walked."""
     import torch
     from abyss_tpu_torch.dbg import extend as ext
     from abyss_tpu_torch.ops import kernels, nthash
+    solid, variant = _solid(wf)
     heads, _ = ext._stuck_heads(walked.buf, k, walked.length)
     P = heads.shape[0]
     roots = torch.cat([heads[:, None, 1:].expand(P, 4, k - 1),
@@ -275,7 +310,7 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
     roots = roots.reshape(4 * P, k).contiguous()
     f0, r0 = nthash.hash_base(roots, k)
     probes = torch.zeros(4 * P, dtype=torch.int64, device=roots.device)
-    depth = kernels.branch(wf.tab, roots, f0, r0, k, k, width, probes)
+    depth = kernels.branch(solid, roots, f0, r0, k, k, width, probes)
     plain = ext.branch_depths_plain(wf, roots, (f0, r0), k, k, width)
     torch.cuda.synchronize()
     err = int((depth.long() - plain.long()).abs().max())
@@ -284,18 +319,20 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
     check(len(set(plain.tolist())) >= 3, "branch check: too few depths")
     n_probes = int(probes.sum())
     N = 4 * P
-    nbytes = n_probes * 64 + N * (k + 8 + 8 + 4)
+    nbytes = n_probes * (BRANCH_BLOOM_BYTES_PER_PROBE if variant else 64) \
+        + N * (k + 8 + 8 + 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_probes * BRANCH_OPS_PER_PROBE / INT_OPS_PER_S * 1e3
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8,
                             device=roots.device)
-    ms = median_ms(lambda: kernels.branch(wf.tab, roots, f0, r0, k, k,
+    ms = median_ms(lambda: kernels.branch(solid, roots, f0, r0, k, k,
                                           width), 10,
                    flush=lambda: flush_buf.fill_(1))
     plain_ms = median_ms(lambda: ext.branch_depths_plain(
         wf, roots, (f0, r0), k, k, width), 3,
         flush=lambda: flush_buf.fill_(1))
-    row = dict(phase="kernel", kernel="branch", roots=N, k=k, max_depth=k,
+    row = dict(phase="kernel", kernel="branch" + variant, roots=N, k=k,
+               max_depth=k,
                width=width, probes=n_probes,
                depth_hist={int(d): int(n) for d, n in zip(
                    *torch.unique(plain, return_counts=True))},
@@ -425,40 +462,24 @@ def _n50(lengths) -> int:
     return 0
 
 
-def phase_main(tmp: str) -> tuple:
-    """The main path at full size; returns its row and (walk filter,
-    read paths, params) for the walk and look-ahead kernel checks."""
+def _drive(paths, params, expected: tuple) -> dict:
+    """One run of the port's assembler (`bloom_dbg.assemble` on the card)
+    with every kernel launch count set to 0 just before and read just
+    after, pass 2's time split by function, and the walk filter the run
+    built kept.  Fails if a kernel of `expected` was not launched."""
     import torch
-    from abyss_tpu_torch import sim
-    from abyss_tpu_torch.core import alphabet
-    from abyss_tpu_torch.dbg.params import AssemblyParams
-    from abyss_tpu_torch.io import fastx
-    from abyss_tpu_torch.ops import kernels
-    t0 = time.perf_counter()
-    genome_bp = 4_600_000
-    genome = sim.genome_with_repeats(genome_bp, seed=7, n_repeats=12,
-                                     repeat_len=700)
-    codes = alphabet.encode(genome)
-    read_len, coverage = 150, 40.0
-    n_pairs = int(genome_bp * coverage / (2 * read_len))
-    paths = [os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq")]
-    simulate_reads(codes, n_pairs, read_len, 500, 50, 0.005, 11, *paths)
-    sim_s = time.perf_counter() - t0
-    log(f"main: {genome_bp} bp genome, {n_pairs} pairs simulated in "
-        f"{sim_s:.1f}s")
-    # the CLI defaults: batch 4096, max read length 512
-    params = AssemblyParams(k=31)
-    torch.cuda.reset_peak_memory_stats()
-    timings: dict = {}
     from abyss_tpu_torch.dbg import bloom_dbg
     from abyss_tpu_torch.dbg import extend as ext
+    from abyss_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
     spans = Spans()
     for mod, name in ((bloom_dbg, "_classify_batch"),
                       (bloom_dbg, "_trim_branch_kmers_batch"),
                       (ext, "extend_forward"), (ext, "fast_extend"),
                       (ext, "_resolve"), (ext, "branch_depths")):
         spans.wrap(mod, name)
-    # keep the walk table the run builds, for the kernel checks after it
+    # keep the walk filter the run builds, for the kernel checks after it
     walk_filters = []
     walk_filter = ext.walk_filter
 
@@ -475,11 +496,25 @@ def phase_main(tmp: str) -> tuple:
         spans.restore()
         ext.walk_filter = walk_filter
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in expected:
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  f"{params.filter_mode} path")
+    check(len(walk_filters) == 1, "the path built no single walk filter")
+    return dict(fasta=fasta, timings=timings, spans=spans,
+                launches=launches, walk_filter=walk_filters[0],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _hold_to_genome(run: dict, genome: str, phase: str, params,
+                    n_pairs: int, read_len: int) -> dict:
+    """The run's row: times, contig statistics against the genome, the
+    FASTA's sha256 and the launches; fails on a contig check."""
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.io import fastx
+    fasta, timings = run["fasta"], run["timings"]
     seqs = [r.seq for r in fastx.read_fastx(io.StringIO(fasta))]
-    check(len(seqs) > 0, "main path assembled no contig")
+    check(len(seqs) > 0, f"{phase}: assembled no contig")
+    genome_bp = len(genome)
     rc = alphabet.revcomp(genome)
     long_ = [s for s in seqs if len(s) >= 500]
     strict = sum(1 for s in long_ if s not in genome and s not in rc)
@@ -491,29 +526,209 @@ def phase_main(tmp: str) -> tuple:
     cover = sum(len(s) for s in long_) / genome_bp
     lengths = [len(s) for s in seqs]
     kmers = int(n_pairs * 2 * (read_len - params.k + 1))
-    row = dict(phase="main", genome_bp=genome_bp, pairs=n_pairs, k=params.k,
+    row = dict(phase=phase, genome_bp=genome_bp, pairs=n_pairs,
+               read_len=read_len, k=params.k,
+               filter_mode=params.filter_mode,
+               bloom_bytes=params.bloom_bytes,
                batch_size=params.batch_size,
-               max_read_len=params.max_read_len, simulate_s=sim_s,
+               max_read_len=params.max_read_len,
                pass1_s=timings["pass1_s"],
                pass1_kmers_per_s=kmers / timings["pass1_s"],
                pass2_s=timings["pass2_s"],
-               pass2_split_s=spans.seconds, pass2_calls=spans.calls,
+               pass2_split_s=run["spans"].seconds,
+               pass2_calls=run["spans"].calls,
                contigs=len(seqs), total_bases=sum(lengths),
                n50=_n50(lengths), max_contig=max(lengths),
                contigs_500=len(long_), cover_500=cover,
                not_substring_500=strict, wrong_500_inside_ends=wrong,
                fasta_sha256=hashlib.sha256(fasta.encode()).hexdigest(),
-               peak_mem_bytes=peak, launches=launches)
-    emit(row)
-    check(wrong == 0, f"{wrong} contigs >= 500 bp are not genome "
+               peak_mem_bytes=run["peak"], launches=run["launches"])
+    return row
+
+
+def _check_contigs(row: dict) -> None:
+    phase = row["phase"]
+    wrong, strict = row["wrong_500_inside_ends"], row["not_substring_500"]
+    check(wrong == 0, f"{phase}: {wrong} contigs >= 500 bp are not genome "
                       f"substrings even without their end k-mers")
     check(strict <= MAX_NOT_SUBSTRING_500,
-          f"{strict} contigs >= 500 bp are not genome substrings, more "
-          f"than {MAX_NOT_SUBSTRING_500}")
-    check(cover >= MIN_COVER_500, f"contigs >= 500 bp cover {cover:.4f} of "
-                                  f"the genome, below {MIN_COVER_500}")
-    check(len(walk_filters) == 1, "the main path built no single walk table")
-    return row, (walk_filters[0], paths, params)
+          f"{phase}: {strict} contigs >= 500 bp are not genome substrings, "
+          f"more than {MAX_NOT_SUBSTRING_500}")
+    check(row["cover_500"] >= MIN_COVER_500,
+          f"{phase}: contigs >= 500 bp cover {row['cover_500']:.4f} of the "
+          f"genome, below {MIN_COVER_500}")
+
+
+def phase_main(tmp: str) -> tuple:
+    """The main path at full size; returns its row, (walk filter, read
+    paths, params) for the walk and look-ahead kernel checks, and the
+    genome."""
+    from abyss_tpu_torch import sim
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.dbg.params import AssemblyParams
+    t0 = time.perf_counter()
+    genome_bp = 4_600_000
+    genome = sim.genome_with_repeats(genome_bp, seed=7, n_repeats=12,
+                                     repeat_len=700)
+    codes = alphabet.encode(genome)
+    read_len, coverage = 150, 40.0
+    n_pairs = int(genome_bp * coverage / (2 * read_len))
+    paths = [os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq")]
+    simulate_reads(codes, n_pairs, read_len, 500, 50, 0.005, 11, *paths)
+    sim_s = time.perf_counter() - t0
+    log(f"main: {genome_bp} bp genome, {n_pairs} pairs simulated in "
+        f"{sim_s:.1f}s")
+    # the CLI defaults: batch 4096, max read length 512
+    params = AssemblyParams(k=31)
+    run = _drive(paths, params, ("nthash", "walk", "branch"))
+    row = _hold_to_genome(run, genome, "main", params, n_pairs, read_len)
+    row["simulate_s"] = sim_s
+    emit(row)
+    _check_contigs(row)
+    return row, (run["walk_filter"], paths, params), genome
+
+
+def phase_bloom(paths, genome: str, main_row: dict) -> tuple:
+    """The Bloom path at full size: the main phase's reads through
+    filter_mode="bloom" at BLOOM_BYTES.  Returns its row, the run's
+    counting filter (pass 2 reads it and changes nothing), its params,
+    and one real pass-1 batch's scatter-max: the counters just before
+    it, its update stream and the counters just after."""
+    import torch
+    from abyss_tpu_torch.dbg.params import AssemblyParams
+    from abyss_tpu_torch.ops import bloom as bloom_ops
+    params = AssemblyParams(k=31, filter_mode="bloom",
+                            bloom_bytes=BLOOM_BYTES)
+    capture: dict = {}
+    scatter = bloom_ops.scatter_max_u8
+
+    def recording(counters, idx, val):
+        # pass 1 calls this once per batch, in batch order
+        n = capture.setdefault("calls", 0)
+        if n == CAPTURE_BATCH:
+            capture.update(before=counters.clone(), idx=idx.clone(),
+                           val=val.clone())
+        out = scatter(counters, idx, val)
+        if n == CAPTURE_BATCH:
+            capture["after"] = counters.clone()
+        capture["calls"] = n + 1
+        return out
+
+    bloom_ops.scatter_max_u8 = recording
+    try:
+        run = _drive(paths, params, ("nthash", "scatter_max", "walk_bloom",
+                                     "branch_bloom"))
+    finally:
+        bloom_ops.scatter_max_u8 = scatter
+    check("after" in capture, f"pass 1 ran fewer than {CAPTURE_BATCH + 1} "
+                              "batches")
+    cbf = run["walk_filter"]
+    check(isinstance(cbf, bloom_ops.CountingBloomFilter),
+          "the Bloom path's walk filter is not its counting filter")
+    row = _hold_to_genome(run, genome, "bloom", params, main_row["pairs"],
+                          main_row["read_len"])
+    body = cbf.counters[:-1]
+    row.update(counters=cbf.size, num_hashes=cbf.num_hashes,
+               threshold=cbf.threshold,
+               occupancy=int((body > 0).sum()) / cbf.size,
+               solid_occupancy=int((body >= cbf.threshold).sum()) / cbf.size,
+               pass1_inserts=capture["calls"],
+               # the replay's copies, held from batch CAPTURE_BATCH on,
+               # count in peak_mem_bytes
+               capture_bytes=sum(capture[n].numel() * capture[n].element_size()
+                                 for n in ("before", "after", "idx", "val")))
+    row["fpr_estimate"] = row["occupancy"] ** cbf.num_hashes
+    emit(row)
+    _check_contigs(row)
+    del run
+    torch.cuda.empty_cache()
+    return row, cbf, params, capture
+
+
+def phase_scatter(capture: dict) -> dict:
+    """The scatter-max kernel against scatter_max_u8_plain on the card,
+    bit for bit, on one real pass-1 batch of the Bloom path: its update
+    stream replayed on the counters as they stood before it (the result
+    must also be the counters the run left after it)."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.ops import scatter_max as sm
+    before, idx, val = capture["before"], capture["idx"], capture["val"]
+    S = sm.pow2_size(before.shape[0])
+    kern = before.clone()
+    kernels.scatter_max(kern, idx, val)
+    plain = before.clone()
+    sm.scatter_max_u8_plain(plain, idx, val)
+    torch.cuda.synchronize()
+    diff = (kern != plain).nonzero()
+    err = int((kern[diff].int() - plain[diff].int()).abs().max()) \
+        if len(diff) else 0
+    check(err == 0, f"scatter_max kernel differs from scatter_max_u8_plain "
+                    f"(max abs err {err})")
+    check(torch.equal(kern, capture["after"]),
+          "scatter_max replay differs from the counters the run left")
+    Q = idx.numel()
+    real = int((idx < S).sum())
+    written = int((kern != before).sum())
+    del kern, plain, diff
+    # each update streams its index and value; each one that is not
+    # dropped reads and writes one 32-byte sector of the counters
+    nbytes = Q * (idx.element_size() + 1) + real * 2 * SECTOR_BYTES
+    work = before.clone()
+
+    def reset():   # a fresh copy of the counters; 1 GiB also flushes L2
+        work.copy_(before)
+
+    ms = median_ms(lambda: kernels.scatter_max(work, idx, val), 10,
+                   flush=reset)
+    plain_ms = median_ms(lambda: sm.scatter_max_u8_plain(work, idx, val), 5,
+                         flush=reset)
+    # one PyTorch call on the same inputs: the dropped updates all hit the
+    # sink slot, which the counting filter clears after each insert
+    library_ms = median_ms(
+        lambda: work.scatter_reduce_(0, idx, val, "amax"), 5, flush=reset)
+    del work
+    return dict(phase="kernel", kernel="scatter_max", counters=S,
+                updates=Q, real_updates=real, counters_raised=written,
+                batch=CAPTURE_BATCH, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def phase_bloom_tool(tmp: str, paths, cbf) -> dict:
+    """`bloom build -t counting -k 31 -b 1G` through the abyss-bloom CLI's
+    entry point on the main reads, launch counts reset just before and
+    read just after; its counters must be byte-identical to the Bloom
+    path's pass-1 filter (same batches into the same 2^30 counters)."""
+    import contextlib
+    import numpy as np
+    from abyss_tpu_torch.cli import bloom_tool
+    from abyss_tpu_torch.ops import kernels
+    out = os.path.join(tmp, "counting.npz")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        bloom_tool.main(["build", "-t", "counting", "-k", "31", "-b",
+                         BLOOM_TOOL_SIZE, out, *paths])
+    finally:
+        launches = dict(kernels.launches)
+    build_s = time.perf_counter() - t0
+    for name in ("nthash", "scatter_max"):
+        check(launches[name] > 0, f"kernel {name} was not launched by "
+                                  "bloom build")
+    info = io.StringIO()
+    with contextlib.redirect_stdout(info):
+        bloom_tool.main(["info", out])
+    with np.load(out) as z:
+        data = z["data"]
+    identical = bool(np.array_equal(data, cbf.counters.cpu().numpy()))
+    check(identical, "bloom build's counters differ from bloom-dbg's pass-1 "
+                     "filter")
+    return dict(phase="tool", command=f"bloom build -t counting -k 31 -b "
+                f"{BLOOM_TOOL_SIZE}", build_s=build_s,
+                npz_bytes=os.path.getsize(out), counters=int(data.size) - 1,
+                identical_to_bloom_pass1=identical,
+                info=info.getvalue().splitlines(), launches=launches)
 
 
 def main() -> int:
@@ -538,34 +753,55 @@ def main() -> int:
         row, kern = phase_kernel()
         emit(row)
         emit(phase_parity(tmp))
-        main_row, (wf, paths, params) = phase_main(tmp)
+        main_row, (wf, paths, params), genome = phase_main(tmp)
         walk, walked = phase_walk(wf, paths, params)
         emit(walk)
         branch = phase_branch(*walked)
         emit(branch)
         del wf, walked
+        torch.cuda.empty_cache()
+        bloom_row, cbf, bparams, capture = phase_bloom(paths, genome,
+                                                       main_row)
+        scatter = phase_scatter(capture)
+        emit(scatter)
+        del capture
+        walk_bloom, walked = phase_walk(cbf, paths, bparams)
+        emit(walk_bloom)
+        branch_bloom = phase_branch(*walked)
+        emit(branch_bloom)
+        del walked
+        emit(phase_bloom_tool(tmp, paths, cbf))
+        del cbf
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # no single PyTorch call computes ntHash, the walk or the look-ahead:
-    # library_ms is null for each.  walk and branch replace jnp loops of
+    # launches: each kernel's count on the path that runs it (main for the
+    # sorted filter's kernels, bloom for the counting filter's).  No single
+    # PyTorch call computes ntHash, the walks or the look-aheads
+    # (library_ms null); walk and branch replace jnp loops of
     # abyss_tpu/dbg/extend.py, not Pallas kernels
+    fast_extend = "abyss_tpu/dbg/extend.py:164"
+    branch_depths = "abyss_tpu/dbg/extend.py:243"
+    walk_cu = "abyss_tpu_torch/csrc/walk.cu"
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=main_row["launches"][name],
+        launches=path["launches"][name],
         max_abs_err=rec["max_abs_err"], ms=rec["ms"],
         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=None)
-        for name, source, replaces, rec in (
+        bound_by=rec["bound_by"], library_ms=rec.get("library_ms"))
+        for name, source, replaces, path, rec in (
             ("nthash", "abyss_tpu_torch/csrc/nthash.cu",
-             "abyss_tpu/ops/pallas_kernels.py:191", kern),
-            ("walk", "abyss_tpu_torch/csrc/walk.cu",
-             "abyss_tpu/dbg/extend.py:164", walk),
-            ("branch", "abyss_tpu_torch/csrc/walk.cu",
-             "abyss_tpu/dbg/extend.py:243", branch))]})
+             "abyss_tpu/ops/pallas_kernels.py:192", main_row, kern),
+            ("walk", walk_cu, fast_extend, main_row, walk),
+            ("branch", walk_cu, branch_depths, main_row, branch),
+            ("scatter_max", "abyss_tpu_torch/csrc/scatter_max.cu",
+             "abyss_tpu/ops/pallas_scatter.py:187", bloom_row, scatter),
+            ("walk_bloom", walk_cu, fast_extend, bloom_row, walk_bloom),
+            ("branch_bloom", walk_cu, branch_depths, bloom_row,
+             branch_bloom))]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

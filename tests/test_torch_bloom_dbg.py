@@ -3,12 +3,12 @@
 the CPU: here the quick fixtures of tests/test_bloom_dbg.py; a genome
 with repeats and errors over several batches in
 test_torch_bloom_dbg_batches.py; resuming from a checkpoint in
-test_torch_checkpoint.py (separate files, so that the test workers run
+test_torch_checkpoint.py; the counting Bloom filter mode in
+test_torch_bloom_mode.py (separate files, so that the test workers run
 them side by side)."""
 
 import io
 
-import pytest
 import torch
 
 from abyss_tpu import sim
@@ -65,10 +65,3 @@ def test_read_log_fixture(tmp_path):
     with open(jlog) as a, open(tlog) as b:
         assert b.read() == a.read()
 
-
-def test_bloom_filter_mode_not_ported(tmp_path):
-    paths = write_reads(tmp_path, sim.random_genome(500, seed=1), "b",
-                        coverage=5, seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbd.assemble(paths, TParams(k=25, filter_mode="bloom"),
-                     out=io.StringIO(), device="cpu")

@@ -1,11 +1,13 @@
 """The port's extension engine against the JAX package's, lane by lane,
 on the tests/test_extend.py graphs.
 
-Both sides walk the same solid set: a sorted filter built from the
-same sequences, probed through the walk table (ext.walk_filter) as the
-assembler does.  Per-lane status, length, buffer and head hashes must
-be identical after fast_extend, and depths after branch_depths; the
-stitched walks of extend_forward must be identical too."""
+Both sides walk the same solid set, built from the same sequences: a
+sorted filter probed through the walk table (ext.walk_filter) as the
+assembler does, or the counting Bloom filter of tests/test_extend.py's
+make_filter (2^18 counters, 4 hashes, threshold 1).  Per-lane status,
+length, buffer and head hashes must be identical after fast_extend,
+and depths after branch_depths; the stitched walks of extend_forward
+must be identical too."""
 
 import numpy as np
 import pytest
@@ -14,11 +16,13 @@ import torch
 import jax.numpy as jnp
 
 from abyss_tpu.dbg import extend as jext
+from abyss_tpu.ops import bloom as jbloom
 from abyss_tpu.ops import nthash as jnt
 from abyss_tpu.ops import sorted_filter as jsf
 from abyss_tpu_torch import u64
 from abyss_tpu_torch.core import alphabet
 from abyss_tpu_torch.dbg import extend as text
+from abyss_tpu_torch.ops import bloom as tbloom
 from abyss_tpu_torch.ops import nthash as tnt
 from abyss_tpu_torch.ops import sorted_filter as tsf
 
@@ -35,16 +39,33 @@ def rnd(n, seed):
     return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
 
 
-def filters(seqs, k=K):
-    """(JAX walk filter, port walk filter) over all k-mers of seqs."""
-    jc = jsf.SortedKmerCounter(k, 1)
-    tc = tsf.SortedKmerCounter(k, 1)
+def filters(seqs, k=K, bloom=False):
+    """(JAX walk filter, port walk filter) over all k-mers of seqs: the
+    sorted filters' walk tables, or (bloom) tests/test_extend.py's
+    counting Bloom filter in each package, their counters held equal."""
+    if bloom:
+        jf = jbloom.CountingBloomFilter.create(1 << 18, k, num_hashes=4,
+                                               threshold=1)
+        tf = tbloom.CountingBloomFilter.create(1 << 18, k, num_hashes=4,
+                                               threshold=1, device="cpu")
+        jadd, tadd = None, tf.insert
+    else:
+        jc = jsf.SortedKmerCounter(k, 1)
+        tc = tsf.SortedKmerCounter(k, 1)
+        jadd, tadd = jc.add, tc.add
     for s in seqs:
         codes = alphabet.encode(s)[None]
         _, _, canon, valid = jnt.kmer_hashes(jnp.asarray(codes), k)
-        jc.add(canon, valid)
+        if bloom:
+            jf = jf.insert(canon, valid)
+        else:
+            jadd(canon, valid)
         tcanon, tvalid = tnt.canonical_hashes(torch.from_numpy(codes), k)
-        tc.add(tcanon, tvalid)
+        tadd(tcanon, tvalid)
+    if bloom:
+        np.testing.assert_array_equal(tf.counters.numpy(),
+                                      np.asarray(jf.counters))
+        return jf, tf
     return jext.walk_filter(jc.finalize()), text.walk_filter(tc.finalize())
 
 
@@ -92,8 +113,17 @@ CASES = [case_linear, case_chunked, case_fork, case_join,
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__)
 def test_extend_forward_identical(case):
+    check_extend_forward(case, bloom=False)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__)
+def test_extend_forward_identical_bloom(case):
+    check_extend_forward(case, bloom=True)
+
+
+def check_extend_forward(case, bloom):
     seqs, seeds, trim, kw = case()
-    jf, tf = filters(seqs)
+    jf, tf = filters(seqs, bloom=bloom)
     seed_codes = np.stack([alphabet.encode(s) for s in seeds])
     jbuf, jlen, jst = jext.extend_forward(jf, seed_codes, K, trim=trim, **kw)
     tbuf, tlen, tst = text.extend_forward(tf, seed_codes, K, trim=trim, **kw)
@@ -115,12 +145,21 @@ def _same_state(ts, js):
 @pytest.mark.parametrize("max_steps", [1, 7, 200])
 @pytest.mark.parametrize("warm", [False, True])
 def test_fast_extend_and_resolve_lane_state(max_steps, warm):
+    check_lane_state(max_steps, warm, bloom=False)
+
+
+@pytest.mark.parametrize("max_steps,warm", [(7, False), (200, True)])
+def test_fast_extend_and_resolve_lane_state_bloom(max_steps, warm):
+    check_lane_state(max_steps, warm, bloom=True)
+
+
+def check_lane_state(max_steps, warm, bloom):
     """Lanes stopping at forks, joins, dead ends and the step budget,
     with and without the warm-restart predecessor."""
     common = rnd(40, 3)
     seqs = [common + rnd(30, 4), common + rnd(30, 5),
             rnd(30, 7) + common[5:], rnd(90, 30)]
-    jf, tf = filters(seqs)
+    jf, tf = filters(seqs, bloom=bloom)
     seeds = np.stack([alphabet.encode(s[1:K + 1]) for s in seqs])
     prev = np.stack([alphabet.encode(s[0]) for s in seqs])[:, 0] \
         if warm else None
@@ -138,9 +177,18 @@ def test_fast_extend_and_resolve_lane_state(max_steps, warm):
 
 @pytest.mark.parametrize("depth,width", [(3, 4), (8, 16), (11, 2)])
 def test_branch_depths_identical(depth, width):
+    check_branch_depths(depth, width, bloom=False)
+
+
+@pytest.mark.parametrize("depth,width", [(8, 16), (11, 2)])
+def test_branch_depths_identical_bloom(depth, width):
+    check_branch_depths(depth, width, bloom=True)
+
+
+def check_branch_depths(depth, width, bloom):
     common = rnd(40, 12)
     seqs = [common + rnd(20, 13), common + rnd(5, 14), rnd(50, 15)]
-    jf, tf = filters(seqs)
+    jf, tf = filters(seqs, bloom=bloom)
     rng = np.random.default_rng(16)
     roots = np.stack(
         [alphabet.encode(s[i:i + K]) for s in seqs for i in (0, 10, 25)]

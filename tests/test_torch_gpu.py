@@ -16,8 +16,10 @@ import torch
 from abyss_tpu_torch import sim
 from abyss_tpu_torch.core import alphabet
 from abyss_tpu_torch.dbg import extend as ext
+from abyss_tpu_torch.ops import bloom as tbloom
 from abyss_tpu_torch.ops import kernels
 from abyss_tpu_torch.ops import nthash
+from abyss_tpu_torch.ops import scatter_max as tsm
 from abyss_tpu_torch.ops import sorted_filter as tsf
 
 # the suite runs in several worker processes at once: one intra-op
@@ -60,28 +62,51 @@ def test_nthash_kernel_refuses_bad_input(cuda):
                        41)
 
 
+def walk_filter(seqs, k, min_cov, bloom, cuda):
+    """The sorted filter's walk table of seqs' k-mers, or (bloom) a
+    counting Bloom filter of them small enough to have false positives;
+    returns it and the name of the kernels' launch count."""
+    if bloom:
+        f = tbloom.CountingBloomFilter.create(1 << 17, k, 3, min_cov, cuda)
+        add = f.insert
+    else:
+        ctr = tsf.SortedKmerCounter(k, min_cov)
+        add = ctr.add
+    for s in seqs:
+        add(*nthash.canonical_hashes(
+            torch.from_numpy(alphabet.encode(s)[None]).to(cuda), k))
+    if bloom:
+        return f, "_bloom"
+    return ext.walk_filter(ctr.finalize(cuda)), ""
+
+
 @pytest.mark.parametrize("max_steps", [1, 50, 2000])
 def test_walk_kernel_matches_plain(cuda, max_steps):
+    check_walk(cuda, max_steps, bloom=False)
+
+
+@pytest.mark.parametrize("max_steps", [1, 50, 2000])
+def test_walk_bloom_kernel_matches_plain(cuda, max_steps):
+    check_walk(cuda, max_steps, bloom=True)
+
+
+def check_walk(cuda, max_steps, bloom):
     k = 25
     genome = sim.genome_with_repeats(5000, seed=3, n_repeats=3,
                                      repeat_len=200)
     pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
                                    error_rate=0.01, seed=4)
     seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
-    ctr = tsf.SortedKmerCounter(k, 2)
-    for s in seqs:
-        ctr.add(*nthash.canonical_hashes(
-            torch.from_numpy(alphabet.encode(s)[None]).to(cuda), k))
-    wf = ext.walk_filter(ctr.finalize(cuda))
+    wf, variant = walk_filter(seqs, k, 2, bloom, cuda)
     seeds = np.stack([alphabet.encode(s[:k]) for s in seqs[:300]])
     st0 = ext.init_state(seeds, k + 400, k, cuda,
                          prev_base=np.zeros(len(seeds), np.uint8))
     fields = ("buf", "length", "f", "r", "status", "has_prev")
     a = st0._replace(**{n: getattr(st0, n).clone() for n in fields})
     b = st0._replace(**{n: getattr(st0, n).clone() for n in fields})
-    launched = kernels.launches["walk"]
+    launched = kernels.launches["walk" + variant]
     a = ext.fast_extend(wf, a, k, max_steps)
-    assert kernels.launches["walk"] == launched + 1
+    assert kernels.launches["walk" + variant] == launched + 1
     b = ext.fast_extend_plain(wf, b, k, max_steps)
     for n in fields:
         assert torch.equal(getattr(a, n), getattr(b, n)), n
@@ -89,24 +114,73 @@ def test_walk_kernel_matches_plain(cuda, max_steps):
 
 @pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
 def test_branch_kernel_matches_plain(cuda, max_depth, width):
+    check_branch(cuda, max_depth, width, bloom=False)
+
+
+@pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
+def test_branch_bloom_kernel_matches_plain(cuda, max_depth, width):
+    check_branch(cuda, max_depth, width, bloom=True)
+
+
+def check_branch(cuda, max_depth, width, bloom):
     k = 25
     genome = sim.genome_with_repeats(5000, seed=5, n_repeats=3,
                                      repeat_len=200)
     pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
                                    error_rate=0.01, seed=6)
     seqs = [s for _, s, _ in pr.reads1 + pr.reads2] + [genome]
-    ctr = tsf.SortedKmerCounter(k, 1)
-    for s in seqs:
-        ctr.add(*nthash.canonical_hashes(
-            torch.from_numpy(alphabet.encode(s)[None]).to(cuda), k))
-    wf = ext.walk_filter(ctr.finalize(cuda))
+    wf, variant = walk_filter(seqs, k, 1, bloom, cuda)
     g = alphabet.encode(genome)
     roots = np.stack([alphabet.encode(s[30:30 + k]) for s in seqs[:500]]
                      + [g[len(g) - k - d:len(g) - d] for d in range(45)])
     t = torch.from_numpy(roots).to(cuda)
     hashes = nthash.hash_base(t, k)
-    launched = kernels.launches["branch"]
+    launched = kernels.launches["branch" + variant]
     d = ext.branch_depths(wf, t, hashes, k, max_depth, width)
-    assert kernels.launches["branch"] == launched + 1
+    assert kernels.launches["branch" + variant] == launched + 1
     assert torch.equal(d, ext.branch_depths_plain(wf, t, hashes, k,
                                                   max_depth, width))
+
+
+@pytest.mark.parametrize("n,Q", [((1 << 20) + 1, 1 << 20), (1 << 12, 1 << 18),
+                                 (5, 1000)])
+def test_scatter_max_kernel_matches_plain(cuda, n, Q):
+    """Random updates (a quarter of them to 4 counters, so swaps
+    collide), indices past the power-of-two size and negative ones."""
+    rng = np.random.default_rng(n)
+    idx = rng.integers(-2, n + 3, size=Q).astype(np.int64)
+    idx[: Q // 4] = rng.integers(0, 4, size=Q // 4)
+    idx = torch.from_numpy(idx).to(cuda)
+    val = torch.from_numpy(rng.integers(0, 256, size=Q).astype(
+        np.uint8)).to(cuda)
+    base = torch.from_numpy(rng.integers(0, 200, size=n).astype(
+        np.uint8)).to(cuda)
+    launched = kernels.launches["scatter_max"]
+    got, ok = tsm.scatter_max_u8(base.clone(), idx, val)
+    assert ok is True
+    assert kernels.launches["scatter_max"] == launched + 1
+    ref, _ = tsm.scatter_max_u8_plain(base.clone(), idx, val)
+    assert torch.equal(got, ref)
+    # a counter array that starts inside a word (a cascade's level row)
+    levels = base.clone()
+    tsm.scatter_max_u8(levels[1:], idx, val)
+    plain = base.clone()
+    tsm.scatter_max_u8_plain(plain[1:], idx, val)
+    assert torch.equal(levels, plain)
+
+
+def test_counting_filter_insert_on_card_matches_cpu(cuda):
+    """A counting filter's inserts on the card (scatter-max kernel) give
+    the CPU's counters in every update mode."""
+    rng = np.random.default_rng(7)
+    canon = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=200000,
+                                          dtype=np.int64))
+    canon[1000:30000] = canon[:29000].clone()    # repeated keys
+    mask = torch.from_numpy(rng.random(200000) < 0.9)
+    ref = tbloom.CountingBloomFilter.create(1 << 18, 31, 4, 2, "cpu")
+    ref.insert(canon, mask).insert(canon[:50000])
+    for mode in tbloom.UPDATE_MODES:
+        f = tbloom.CountingBloomFilter.create(1 << 18, 31, 4, 2, cuda)
+        f.update_mode = mode
+        f.insert(canon.to(cuda), mask.to(cuda)).insert(canon[:50000].to(cuda))
+        assert torch.equal(f.counters.cpu(), ref.counters), mode

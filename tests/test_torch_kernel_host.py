@@ -1,11 +1,13 @@
 """The CUDA kernels' own arithmetic, checked on the CPU.
 
 There is no nvcc here, so g++ compiles the kernels' per-thread bodies
-(csrc/nthash.cuh, csrc/walk.cuh) into csrc/host_harness.cpp, which loops
-them over the grids nthash.cu and walk.cu launch.  The results must be
-bit-identical to the plain PyTorch versions the kernels replace on the
-card: ops/nthash.kmer_hashes_plain, dbg/extend.fast_extend_plain and
-dbg/extend.branch_depths_plain."""
+(csrc/nthash.cuh, csrc/walk.cuh, csrc/scatter_max.cuh) into
+csrc/host_harness.cpp, which loops them over the grids nthash.cu,
+walk.cu and scatter_max.cu launch.  The results must be bit-identical
+to the plain PyTorch versions the kernels replace on the card:
+ops/nthash.kmer_hashes_plain, dbg/extend.fast_extend_plain and
+dbg/extend.branch_depths_plain (in the walk table and in a counting
+Bloom filter), and ops/scatter_max.scatter_max_u8_plain."""
 
 import ctypes
 import os
@@ -19,8 +21,10 @@ from abyss_tpu_torch import sim, u64
 from abyss_tpu_torch.core import alphabet
 from abyss_tpu_torch.dbg import extend as text
 from abyss_tpu_torch.native import build_library
+from abyss_tpu_torch.ops import bloom as tbloom
 from abyss_tpu_torch.ops import kernels
 from abyss_tpu_torch.ops import nthash as tnt
+from abyss_tpu_torch.ops import scatter_max as tsm
 from abyss_tpu_torch.ops import sorted_filter as tsf
 
 # the suite runs in several worker processes at once: one intra-op
@@ -40,7 +44,7 @@ def harness():
     so = build_library(
         "host_harness", ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
         [src], deps=[os.path.join(kernels.CSRC, h)
-                     for h in ("nthash.cuh", "walk.cuh")])
+                     for h in ("nthash.cuh", "walk.cuh", "scatter_max.cuh")])
     lib = ctypes.CDLL(so)
     lib.nthash_host.restype = None
     lib.nthash_host.argtypes = [P_, I64, I64, ctypes.c_int, P_, P_, P_, P_]
@@ -51,6 +55,15 @@ def harness():
     lib.walk_host.restype = None
     lib.walk_host.argtypes = [P_, I64, I64, P_, P_, P_, P_, P_, P_, P_, I64,
                               ctypes.c_int, I64]
+    I = ctypes.c_int
+    lib.branch_bloom_host.restype = None
+    lib.branch_bloom_host.argtypes = [P_, I64, I, P_, P_, P_, I64, I, I, I,
+                                      I, I, P_, P_, P_, I, P_, P_]
+    lib.walk_bloom_host.restype = None
+    lib.walk_bloom_host.argtypes = [P_, I64, I64, P_, P_, P_, P_, P_, P_, P_,
+                                    I64, I, I, I, I, I64]
+    lib.scatter_max_host.restype = None
+    lib.scatter_max_host.argtypes = [P_, I64, P_, P_, I64]
     return lib
 
 
@@ -89,27 +102,47 @@ def test_nthash_body_matches_plain(harness, k, L):
     np.testing.assert_array_equal(rev, u64.to_numpy(pr))
 
 
-def walk_filter(seqs, k, min_cov=1):
-    ctr = tsf.SortedKmerCounter(k, min_cov)
+def walk_filter(seqs, k, min_cov=1, bloom=False):
+    """The walk filter of seqs' k-mers: the sorted filter's walk table,
+    or (bloom=True) a counting Bloom filter small enough that false
+    positives make extra branches (a few percent on the read sets)."""
+    if bloom:
+        f = tbloom.CountingBloomFilter.create(1 << 17, k, 3, min_cov, "cpu")
+        add = f.insert
+    else:
+        ctr = tsf.SortedKmerCounter(k, min_cov)
+        add = ctr.add
     for s in seqs:
         codes = torch.from_numpy(alphabet.encode(s)[None])
-        ctr.add(*tnt.canonical_hashes(codes, k))
-    return text.walk_filter(ctr.finalize("cpu"))
+        add(*tnt.canonical_hashes(codes, k))
+    return f if bloom else text.walk_filter(ctr.finalize("cpu"))
+
+
+def solid_args(wf):
+    """The harness's solidity arguments for a walk filter (the numpy
+    arrays are returned too, to keep them alive)."""
+    if isinstance(wf, tbloom.CountingBloomFilter):
+        counters = wf.counters.numpy().copy()
+        return counters, [ptr(counters), wf.size, wf.k, wf.num_hashes,
+                          wf.threshold]
+    tab = u64.to_numpy(wf.tab).copy()
+    return tab, [ptr(tab), len(tab) - 8]
 
 
 def harness_walk(harness, wf, st, k, max_steps):
-    """Run walk_host on numpy copies of a CPU state; returns the copies."""
+    """Run walk_host (walk_bloom_host for a counting filter) on numpy
+    copies of a CPU state; returns the copies."""
     s = dict(buf=st.buf.numpy().copy(), length=st.length.numpy().copy(),
              f=u64.to_numpy(st.f).copy(), r=u64.to_numpy(st.r).copy(),
              status=st.status.numpy().copy(),
              has_prev=st.has_prev.numpy().astype(np.uint8))
     seed = u64.to_numpy(st.seed_canon).copy()
-    tab = u64.to_numpy(wf.tab).copy()
+    keep, args = solid_args(wf)
+    fn = harness.walk_bloom_host if isinstance(
+        wf, tbloom.CountingBloomFilter) else harness.walk_host
     P, BUF = s["buf"].shape
-    harness.walk_host(ptr(s["buf"]), P, BUF, ptr(s["length"]), ptr(s["f"]),
-                      ptr(s["r"]), ptr(s["status"]), ptr(seed),
-                      ptr(s["has_prev"]), ptr(tab), len(tab) - 8, k,
-                      max_steps)
+    fn(ptr(s["buf"]), P, BUF, ptr(s["length"]), ptr(s["f"]), ptr(s["r"]),
+       ptr(s["status"]), ptr(seed), ptr(s["has_prev"]), *args, k, max_steps)
     return s
 
 
@@ -131,13 +164,23 @@ def rnd(n, seed):
 @pytest.mark.parametrize("max_steps", [1, 7, 200])
 @pytest.mark.parametrize("warm", [False, True])
 def test_walk_body_matches_plain_on_forks(harness, max_steps, warm):
+    check_walk_on_forks(harness, max_steps, warm, bloom=False)
+
+
+@pytest.mark.parametrize("max_steps", [1, 7, 200])
+@pytest.mark.parametrize("warm", [False, True])
+def test_walk_bloom_body_matches_plain_on_forks(harness, max_steps, warm):
+    check_walk_on_forks(harness, max_steps, warm, bloom=True)
+
+
+def check_walk_on_forks(harness, max_steps, warm, bloom):
     """Forks, joins, a dead end and a cycle; lanes stop at every status."""
     k = 11
     common = rnd(40, 3)
     core = rnd(50, 10)
     seqs = [common + rnd(30, 4), common + rnd(30, 5),
             rnd(30, 7) + common[5:], rnd(90, 30), core + core[:k]]
-    wf = walk_filter(seqs, k)
+    wf = walk_filter(seqs, k, bloom=bloom)
     seeds = np.stack([alphabet.encode(s[1:k + 1]) for s in seqs])
     prev = np.stack([alphabet.encode(s[0]) for s in seqs])[:, 0] \
         if warm else None
@@ -149,6 +192,16 @@ def test_walk_body_matches_plain_on_forks(harness, max_steps, warm):
 
 @pytest.mark.parametrize("max_steps,buf_extra", [(64, 64), (500, 300)])
 def test_walk_body_matches_plain_on_reads(harness, max_steps, buf_extra):
+    check_walk_on_reads(harness, max_steps, buf_extra, bloom=False)
+
+
+@pytest.mark.parametrize("max_steps,buf_extra", [(64, 64), (500, 300)])
+def test_walk_bloom_body_matches_plain_on_reads(harness, max_steps,
+                                                buf_extra):
+    check_walk_on_reads(harness, max_steps, buf_extra, bloom=True)
+
+
+def check_walk_on_reads(harness, max_steps, buf_extra, bloom):
     """Lanes seeded from simulated reads of a genome with repeats and
     errors: tips, bubbles and repeats stop them NEED_F / NEED_B, and a
     short buffer stops the rest CHUNK_LIMIT."""
@@ -158,15 +211,15 @@ def test_walk_body_matches_plain_on_reads(harness, max_steps, buf_extra):
     pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
                                    error_rate=0.01, seed=4)
     seqs = [seq for _, seq, _ in pr.reads1 + pr.reads2]
-    wf = walk_filter(seqs, k, min_cov=2)
+    wf = walk_filter(seqs, k, min_cov=2, bloom=bloom)
     rng = np.random.default_rng(5)
     picks = rng.choice(len(seqs), size=96, replace=False)
     seeds = np.stack([alphabet.encode(seqs[i][10:10 + k]) for i in picks])
     st = text.init_state(seeds, k + buf_extra, k, "cpu")
-    launched = kernels.launches["walk"]
+    launched = dict(kernels.launches)
     s = harness_walk(harness, wf, st, k, max_steps)
     st = text.fast_extend(wf, st, k, max_steps)
-    assert kernels.launches["walk"] == launched    # CPU: plain version
+    assert kernels.launches == launched    # CPU: plain version
     assert len(set(st.status.tolist())) >= 3
     assert_same(s, st)
 
@@ -176,22 +229,33 @@ def harness_branch(harness, wf, roots, k, max_depth, width):
     N = roots.shape[0]
     f0, r0 = tnt.hash_base(torch.from_numpy(roots), k)
     f0, r0 = u64.to_numpy(f0).copy(), u64.to_numpy(r0).copy()
-    tab = u64.to_numpy(wf.tab).copy()
+    keep, args = solid_args(wf)
+    fn = harness.branch_bloom_host if isinstance(
+        wf, tbloom.CountingBloomFilter) else harness.branch_host
     H = max(max_depth - k, 0)
     fs = np.zeros(2 * width * N, np.uint64)
     rs = np.zeros_like(fs)
     hist = np.zeros(max(2 * width * H * N, 1), np.uint8)
     depth = np.zeros(N, np.int32)
     probes = np.zeros(N, np.int64)
-    harness.branch_host(ptr(roots), N, k, ptr(f0), ptr(r0), ptr(tab),
-                        len(tab) - 8, max_depth, width, ptr(fs), ptr(rs),
-                        ptr(hist), H, ptr(depth), ptr(probes))
+    fn(ptr(roots), N, k, ptr(f0), ptr(r0), *args, max_depth, width,
+       ptr(fs), ptr(rs), ptr(hist), H, ptr(depth), ptr(probes))
     return depth, probes
 
 
 @pytest.mark.parametrize("k,max_depth,width", [
     (25, 25, 16), (25, 5, 16), (11, 11, 2), (11, 30, 4), (11, 40, 16)])
 def test_branch_body_matches_plain(harness, k, max_depth, width):
+    check_branch(harness, k, max_depth, width, bloom=False)
+
+
+@pytest.mark.parametrize("k,max_depth,width", [
+    (25, 25, 16), (11, 11, 2), (11, 30, 4)])
+def test_branch_bloom_body_matches_plain(harness, k, max_depth, width):
+    check_branch(harness, k, max_depth, width, bloom=True)
+
+
+def check_branch(harness, k, max_depth, width, bloom):
     """Roots inside reads and one base off them (tips and bubbles of
     read errors), some with an N, and roots near the genome's end (every
     depth up to max_depth); depths past k need the frontier's appended
@@ -203,7 +267,7 @@ def test_branch_body_matches_plain(harness, k, max_depth, width):
     seqs = [seq for _, seq, _ in pr.reads1 + pr.reads2]
     # every read k-mer solid: error k-mers make tips and bubbles, and
     # the genome's own k-mers reach its very end
-    wf = walk_filter(seqs + [genome], k, min_cov=1)
+    wf = walk_filter(seqs + [genome], k, min_cov=1, bloom=bloom)
     rng = np.random.default_rng(8)
     roots = [alphabet.encode(seqs[i][20:20 + k])
              for i in rng.choice(len(seqs), 150, replace=False)]
@@ -215,10 +279,10 @@ def test_branch_body_matches_plain(harness, k, max_depth, width):
     roots[5, 3] = 4
     depth, probes = harness_branch(harness, wf, roots, k, max_depth, width)
     t = torch.from_numpy(roots)
-    launched = kernels.launches["branch"]
+    launched = dict(kernels.launches)
     plain = text.branch_depths(wf, t, tnt.hash_base(t, k), k, max_depth,
                                width).numpy()
-    assert kernels.launches["branch"] == launched    # CPU: plain version
+    assert kernels.launches == launched    # CPU: plain version
     assert len(set(plain.tolist())) >= 3
     np.testing.assert_array_equal(depth, plain)
     # a probe at least for each step run, at most 4 per frontier k-mer
@@ -228,16 +292,51 @@ def test_branch_body_matches_plain(harness, k, max_depth, width):
 
 def test_walk_wrappers_refuse_cpu_tensors():
     """On CPU tensors the walk kernels' wrappers raise and count
-    nothing."""
+    nothing, with the walk table and with a counting Bloom filter."""
     k = 5
     st = text.init_state(np.zeros((4, k), np.uint8), k + 8, k, "cpu")
     tab = torch.full((1024 + 8,), -1, dtype=torch.int64)
-    launched = kernels.launches["walk"]
+    cbf = tbloom.CountingBloomFilter.create(1024, k, device="cpu")
+    launched = dict(kernels.launches)
+    for solid in (tab, cbf):
+        with pytest.raises(ValueError):
+            kernels.walk(solid, st.buf, st.length, st.f, st.r, st.status,
+                         st.seed_canon, st.has_prev, k, 10)
+        with pytest.raises(ValueError):
+            kernels.branch(solid, st.buf[:, :k].contiguous(), st.f, st.r, k,
+                           5, 4)
+    assert kernels.launches == launched
+
+
+@pytest.mark.parametrize("n,Q,offset", [(1 << 12, 5000, 0),
+                                        ((1 << 12) + 1, 20000, 0),
+                                        ((1 << 10) + 1, 3000, 3),
+                                        (5, 40, 1)])
+def test_scatter_max_body_matches_plain(harness, n, Q, offset):
+    """Random updates, many to one counter, values below and above the
+    counters, indices past the power-of-two size (the sink slot and
+    beyond) and negative ones; the counter array starting at every byte
+    offset of its word (as a row of a cascade's levels does)."""
+    rng = np.random.default_rng(n + Q)
+    S = tsm.pow2_size(n)
+    idx = rng.integers(-2, n + 3, size=Q).astype(np.int64)
+    idx[: Q // 4] = rng.integers(0, 4, size=Q // 4)
+    val = rng.integers(0, 256, size=Q).astype(np.uint8)
+    base = rng.integers(0, 200, size=n + offset).astype(np.uint8)
+    got = base.copy()
+    harness.scatter_max_host(ptr(got[offset:]), S, ptr(idx), ptr(val), Q)
+    ref = torch.from_numpy(base.copy())
+    tsm.scatter_max_u8_plain(ref[offset:], torch.from_numpy(idx),
+                             torch.from_numpy(val))
+    np.testing.assert_array_equal(got, ref.numpy())
+    assert (got[offset + S:] == base[offset + S:]).all()   # sink untouched
+    assert (got[:offset] == base[:offset]).all()
+
+
+def test_scatter_max_wrapper_refuses_cpu_tensors():
+    launched = kernels.launches["scatter_max"]
     with pytest.raises(ValueError):
-        kernels.walk(tab, st.buf, st.length, st.f, st.r, st.status,
-                     st.seed_canon, st.has_prev, k, 10)
-    assert kernels.launches["walk"] == launched
-    launched = kernels.launches["branch"]
-    with pytest.raises(ValueError):
-        kernels.branch(tab, st.buf[:, :k].contiguous(), st.f, st.r, k, 5, 4)
-    assert kernels.launches["branch"] == launched
+        kernels.scatter_max(torch.zeros(9, dtype=torch.uint8),
+                            torch.zeros(3, dtype=torch.int64),
+                            torch.zeros(3, dtype=torch.uint8))
+    assert kernels.launches["scatter_max"] == launched
