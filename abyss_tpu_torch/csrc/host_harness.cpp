@@ -1,13 +1,17 @@
 // Host loops over the CUDA kernels' grids, for the CPU test suite.
 //
-// g++ compiles the kernels' per-thread bodies (nthash.cuh, walk.cuh,
+// g++ compiles the kernels' bodies (nthash.cuh, walk.cuh,
 // scatter_max.cuh) into this library; each loop below runs them over the
-// same blocks and threads, with the same shared-memory staging, as
-// nthash.cu, walk.cu and scatter_max.cu launch them.
+// same blocks and threads (for the walks, the same groups of members,
+// one host thread playing each member in turn), with the same
+// shared-memory staging, as nthash.cu, walk.cu and scatter_max.cu launch
+// them.
 // tests/test_torch_kernel_host.py holds the results bit-identical to the
 // plain PyTorch versions.
 
 #include <stdint.h>
+
+#include <vector>
 
 #include "nthash.cuh"
 #include "scatter_max.cuh"
@@ -52,19 +56,26 @@ walk::BloomSolid bloom_solid(const uint8_t* counters, int64_t size,
                             threshold};
 }
 
+// walk.cu branch_kernel: each root searched by a group of members, the
+// host thread playing each in turn, its frontier in a buffer of the
+// kernel's layout.
 template <class Solid>
 void branch_loop(const uint8_t* roots, int64_t N, int k, const uint64_t* f0,
                  const uint64_t* r0, const Solid& solid, int max_depth,
-                 int W, uint64_t* fs, uint64_t* rs, uint8_t* hist, int H,
-                 int32_t* depth, int64_t* probes) {
+                 int W, int H, int32_t* depth, int64_t* probes) {
     nthash::Tables t;
     nthash::make_tables(t, k);
+    std::vector<uint64_t> region(walk::frontier_bytes(W, H, k) / 8);
+    const walk::Frontier fr = walk::frontier_at(region.data(), W, H, k);
     for (int64_t i = 0; i < N; ++i)
-        depth[i] = walk::branch_root(roots + i * k, k, f0[i], r0[i], solid,
-                                     t, max_depth, W, N, i, fs, rs, hist, H,
+        depth[i] = walk::branch_root(walk::SerialGroup{}, roots + i * k,
+                                     f0[i], r0[i], solid, t, max_depth, fr,
                                      probes + i);
 }
 
+// walk.cu walk_kernel: each ACTIVE lane walked by a group of members, the
+// host thread playing each in turn; lanes that are not ACTIVE are
+// skipped.
 template <class Solid>
 void walk_loop(uint8_t* buf, int64_t P, int64_t BUF, int64_t* length,
                uint64_t* f, uint64_t* r, int8_t* status,
@@ -72,12 +83,14 @@ void walk_loop(uint8_t* buf, int64_t P, int64_t BUF, int64_t* length,
                const Solid& solid, int k, int64_t max_steps) {
     nthash::Tables t;
     nthash::make_tables(t, k);
+    std::vector<uint8_t> ring(walk::ring_size(k));
     for (int64_t lane = 0; lane < P; ++lane) {
         if (status[lane] != walk::ACTIVE) continue;
         walk::Lane s{length[lane], f[lane], r[lane], status[lane],
                      has_prev[lane] != 0};
-        walk::walk_lane(buf + lane * BUF, BUF, s, seed_canon[lane], solid, k,
-                        t, max_steps);
+        walk::walk_lane(walk::SerialGroup{}, buf + lane * BUF, BUF, s,
+                        seed_canon[lane], solid, k, t, max_steps,
+                        ring.data());
         length[lane] = s.length;
         f[lane] = s.f;
         r[lane] = s.r;
@@ -98,14 +111,13 @@ struct HostWord {
 
 }  // namespace
 
-// walk.cu branch_kernel: one root per thread, the same scratch layout.
+// walk.cu branch_launch; H = max_depth - k if positive, else 0.
 extern "C" void branch_host(const uint8_t* roots, int64_t N, int k,
                             const uint64_t* f0, const uint64_t* r0,
                             const uint64_t* tab, int64_t size, int max_depth,
-                            int W, uint64_t* fs, uint64_t* rs, uint8_t* hist,
-                            int H, int32_t* depth, int64_t* probes) {
-    branch_loop(roots, N, k, f0, r0, table_solid(tab, size), max_depth, W,
-                fs, rs, hist, H, depth, probes);
+                            int W, int H, int32_t* depth, int64_t* probes) {
+    branch_loop(roots, N, k, f0, r0, table_solid(tab, size), max_depth, W, H,
+                depth, probes);
 }
 
 // branch_host on a counting Bloom filter (walk.cu branch_bloom_launch).
@@ -113,16 +125,14 @@ extern "C" void branch_bloom_host(const uint8_t* roots, int64_t N, int k,
                                   const uint64_t* f0, const uint64_t* r0,
                                   const uint8_t* counters, int64_t size,
                                   int hash_k, int num_hashes, int threshold,
-                                  int max_depth, int W, uint64_t* fs,
-                                  uint64_t* rs, uint8_t* hist, int H,
+                                  int max_depth, int W, int H,
                                   int32_t* depth, int64_t* probes) {
     branch_loop(roots, N, k, f0, r0,
                 bloom_solid(counters, size, hash_k, num_hashes, threshold),
-                max_depth, W, fs, rs, hist, H, depth, probes);
+                max_depth, W, H, depth, probes);
 }
 
-// walk.cu walk_kernel: one lane per thread; lanes that are not ACTIVE
-// are skipped.
+// walk.cu walk_launch.
 extern "C" void walk_host(uint8_t* buf, int64_t P, int64_t BUF,
                           int64_t* length, uint64_t* f, uint64_t* r,
                           int8_t* status, const uint64_t* seed_canon,

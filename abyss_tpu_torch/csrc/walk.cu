@@ -1,9 +1,9 @@
-// The unitig walks of dbg/extend.py for Hopper (sm_90a), a thread per
-// walk (walk.cuh):
-//   * walk_kernel: the lock-step extension `fast_extend`, one thread
-//     walking one lane up to max_steps steps;
-//   * branch_kernel: the breadth-first look-ahead `branch_depths`, one
-//     thread searching from one root up to max_depth steps.
+// The unitig walks of dbg/extend.py for Hopper (sm_90a), a group of
+// threads per walk (walk.cuh):
+//   * walk_kernel: the lock-step extension `fast_extend`, a group of 8
+//     threads walking one lane up to max_steps steps;
+//   * branch_kernel: the breadth-first look-ahead `branch_depths`, a warp
+//     searching from one root up to max_depth steps.
 //
 // They replace no Pallas kernel: the JAX package runs both loops as
 // `lax.while_loop` / `lax.scan` of jnp ops inside one jitted program
@@ -11,7 +11,7 @@
 // each loop step is some fifty to a hundred small tensor ops launched
 // from the host, and walks take thousands of steps; each kernel runs a
 // whole loop in one launch.  Lanes and roots are independent, so a
-// thread each gives the lock-step result exactly.
+// group each gives the lock-step result exactly.
 //
 // Each kernel comes in two variants of its solidity test (walk.cuh):
 // the walk table of the sorted filter (walk_launch, branch_launch) and
@@ -19,14 +19,25 @@
 // where a test reads H counters at hashed places instead of one 64-byte
 // table window.
 //
-// What bounds them: latency.  Each step probes the walk table at 4 or 8
-// random places (64-byte windows), and the next step needs this step's
-// answers.  The bytes the work needs (the probed windows, once each)
-// would take far less time than the chains of dependent probes: a few
-// thousand threads cannot keep enough loads in flight.  The design keeps
-// the probes of a step independent of each other and the head state in
-// registers (the look-ahead's frontier in scratch laid out so that a
-// warp's accesses coalesce); their times on the card are in PERF.md.
+// What bounds them: the latency of chains of dependent random probes,
+// not bytes.  A walk step tests 8 candidates at random places in a table
+// far larger than L2, and the next step needs this step's answers; a
+// look-ahead step tests up to 4 children of each of up to W frontier
+// k-mers.  The bytes the work needs (each probed window or counter
+// sector once) would take a tenth of the time or less.  So the design
+// puts all of a step's probes in flight at once and keeps everything
+// else off the chain: a lane's 8 candidates go to 8 threads, a root's
+// children to the 32 threads of a warp (8 frontier slots a round), every
+// test issues all of its loads (8 table slots, or H counters) before it
+// looks at any, and the answers meet in a ballot (a lane's 8-bit mask
+// decides its step; a root's 32-bit mask of children in (parent, base)
+// order ranks the ones the frontier keeps).  A lane's head stays in
+// registers and its last k bases in a ring in shared memory that each
+// thread keeps for itself, so that no step reads back what an earlier
+// one wrote to device memory and no step waits at a barrier; a root's
+// codes and frontier live in shared memory (the frontier in device-memory
+// scratch only when it does not fit).  A step then costs about one
+// memory round trip; the times on the card are in PERF.md.
 //
 // Plain C interface for ctypes: each *_launch returns cudaGetLastError()
 // after the launch, on the caller's stream, without synchronising.
@@ -39,6 +50,49 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int ROOTS_PER_BLOCK = THREADS / walk::BRANCH_GROUP;
+// dynamic shared memory a block may take without opting in
+constexpr int64_t SHARED_BYTES = 48 << 10;
+
+// A group of G consecutive threads of a warp (G divides 32) acting as
+// one lane's or root's members (walk.cuh).  Only the group's own lanes
+// take part in its ballots and barriers, so groups of one warp may stop
+// at different steps.
+struct WarpGroup {
+    static constexpr int LOCAL = 1;  // a member keeps its own values
+    unsigned mask;  // the group's lanes of the warp
+    int shift;      // its first lane
+    int member;     // this thread's rank in the group
+
+    __device__ static WarpGroup of(int G) {
+        const int lane = int(threadIdx.x) & 31;
+        const int shift = lane & ~(G - 1);
+        const unsigned bits = G == 32 ? 0xFFFFFFFFu : (1u << G) - 1;
+        return WarpGroup{bits << shift, shift, lane - shift};
+    }
+    __device__ int local(int) const { return 0; }
+    // bit j: fn(j) of member j
+    template <class Fn>
+    __device__ uint32_t gather(int, Fn fn) const {
+        return (__ballot_sync(mask, fn(member)) & mask) >> shift;
+    }
+    template <class Fn>
+    __device__ void each(int, Fn fn) const {
+        fn(member);
+    }
+    __device__ bool leader() const { return member == 0; }
+    __device__ void sync() const { __syncwarp(mask); }
+};
+
+// Lanes of a walk block: 16 (128 threads), fewer when their threads'
+// rings of bases (walk.cuh walk_lane) would not fit the block's shared
+// memory; 0 when one lane's do not (k >= 4096).
+int64_t lanes_per_block(int k) {
+    const int64_t fit =
+        SHARED_BYTES / (int64_t(walk::WALK_GROUP) * walk::ring_size(k));
+    const int64_t most = THREADS / walk::WALK_GROUP;
+    return fit < most ? fit : most;
+}
 
 template <class Solid>
 __global__ void __launch_bounds__(THREADS)
@@ -49,14 +103,21 @@ walk_kernel(uint8_t* __restrict__ buf, int64_t P, int64_t BUF,
             bool* __restrict__ has_prev, Solid solid, int k,
             int64_t max_steps) {
     __shared__ nthash::Tables s_tab;
+    extern __shared__ uint8_t s_rings[];
     if (threadIdx.x == 0) nthash::make_tables(s_tab, k);
     __syncthreads();
-    const int64_t lane = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+    const int in_block = int(threadIdx.x) / walk::WALK_GROUP;
+    const int64_t lane =
+        int64_t(blockIdx.x) * (blockDim.x / walk::WALK_GROUP) + in_block;
+    // the same answer in every member of the lane's group
     if (lane >= P || status[lane] != walk::ACTIVE) return;
+    const WarpGroup g = WarpGroup::of(walk::WALK_GROUP);
     walk::Lane s{length[lane], uint64_t(f[lane]), uint64_t(r[lane]),
                  status[lane], has_prev[lane]};
-    walk::walk_lane(buf + lane * BUF, BUF, s, uint64_t(seed_canon[lane]),
-                    solid, k, s_tab, max_steps);
+    walk::walk_lane(g, buf + lane * BUF, BUF, s, uint64_t(seed_canon[lane]),
+                    solid, k, s_tab, max_steps,
+                    s_rings + int64_t(threadIdx.x) * walk::ring_size(k));
+    if (!g.leader()) return;
     length[lane] = s.length;
     f[lane] = int64_t(s.f);
     r[lane] = int64_t(s.r);
@@ -68,19 +129,27 @@ template <class Solid>
 __global__ void __launch_bounds__(THREADS)
 branch_kernel(const uint8_t* __restrict__ roots, int64_t N, int k,
               const int64_t* __restrict__ f0, const int64_t* __restrict__ r0,
-              Solid solid, int max_depth, int W, int64_t* __restrict__ fs,
-              int64_t* __restrict__ rs, uint8_t* __restrict__ hist, int H,
-              int32_t* __restrict__ depth, int64_t* __restrict__ probes) {
+              Solid solid, int max_depth, int W, int H,
+              uint8_t* __restrict__ scratch, int32_t* __restrict__ depth,
+              int64_t* __restrict__ probes) {
     __shared__ nthash::Tables s_tab;
+    extern __shared__ uint64_t s_frontier[];
     if (threadIdx.x == 0) nthash::make_tables(s_tab, k);
     __syncthreads();
-    const int64_t i = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+    const int group = int(threadIdx.x) / walk::BRANCH_GROUP;
+    const int64_t i = int64_t(blockIdx.x) * ROOTS_PER_BLOCK + group;
     if (i >= N) return;
+    const int64_t bytes = walk::frontier_bytes(W, H, k);
+    uint8_t* region = scratch != nullptr
+        ? scratch + i * bytes
+        : reinterpret_cast<uint8_t*>(s_frontier) + group * bytes;
+    const WarpGroup g = WarpGroup::of(walk::BRANCH_GROUP);
     int64_t np = 0;
-    depth[i] = walk::branch_root(
-        roots + i * k, k, uint64_t(f0[i]), uint64_t(r0[i]), solid, s_tab,
-        max_depth, W, N, i, reinterpret_cast<uint64_t*>(fs),
-        reinterpret_cast<uint64_t*>(rs), hist, H, &np);
+    const int d = walk::branch_root(
+        g, roots + i * k, uint64_t(f0[i]), uint64_t(r0[i]), solid, s_tab,
+        max_depth, walk::frontier_at(region, W, H, k), &np);
+    if (!g.leader()) return;
+    depth[i] = d;
     if (probes != nullptr) probes[i] = np;
 }
 
@@ -95,13 +164,22 @@ walk::BloomSolid bloom_solid(const uint8_t* counters, int64_t size,
                             threshold};
 }
 
+int64_t scratch_bytes(int W, int H, int k) {
+    const int64_t bytes = walk::frontier_bytes(W, H, k);
+    return ROOTS_PER_BLOCK * bytes <= SHARED_BYTES ? 0 : bytes;
+}
+
 template <class Solid>
 int walk_run(uint8_t* buf, int64_t P, int64_t BUF, int64_t* length,
              int64_t* f, int64_t* r, int8_t* status,
              const int64_t* seed_canon, bool* has_prev, Solid solid, int k,
              int64_t max_steps, void* stream) {
-    const unsigned blocks = unsigned((P + THREADS - 1) / THREADS);
-    walk_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int64_t per = lanes_per_block(k);
+    if (per < 1) return int(cudaErrorInvalidValue);
+    const unsigned blocks = unsigned((P + per - 1) / per);
+    walk_kernel<<<blocks, unsigned(per * walk::WALK_GROUP),
+                  size_t(per * walk::WALK_GROUP * walk::ring_size(k)),
+                  static_cast<cudaStream_t>(stream)>>>(
         buf, P, BUF, length, f, r, status, seed_canon, has_prev, solid, k,
         max_steps);
     return int(cudaGetLastError());
@@ -109,22 +187,46 @@ int walk_run(uint8_t* buf, int64_t P, int64_t BUF, int64_t* length,
 
 template <class Solid>
 int branch_run(const uint8_t* roots, int64_t N, int k, const int64_t* f0,
-               const int64_t* r0, Solid solid, int max_depth, int W,
-               int64_t* fs, int64_t* rs, uint8_t* hist, int H,
-               int32_t* depth, int64_t* probes, void* stream) {
-    const unsigned blocks = unsigned((N + THREADS - 1) / THREADS);
-    branch_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        roots, N, k, f0, r0, solid, max_depth, W, fs, rs, hist, H, depth,
-        probes);
+               const int64_t* r0, Solid solid, int max_depth, int W, int H,
+               uint8_t* scratch, int32_t* depth, int64_t* probes,
+               void* stream) {
+    const bool shared = scratch_bytes(W, H, k) == 0;
+    if (!shared && scratch == nullptr) return int(cudaErrorInvalidValue);
+    const size_t smem =
+        shared ? size_t(ROOTS_PER_BLOCK * walk::frontier_bytes(W, H, k)) : 0;
+    const unsigned blocks =
+        unsigned((N + ROOTS_PER_BLOCK - 1) / ROOTS_PER_BLOCK);
+    branch_kernel<<<blocks, THREADS, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+        roots, N, k, f0, r0, solid, max_depth, W, H,
+        shared ? nullptr : scratch, depth, probes);
     return int(cudaGetLastError());
 }
 
 }  // namespace
 
+// Blocks of a walk launch over P lanes with k-mers of k bases, and of a
+// look-ahead launch over N roots.
+extern "C" int64_t walk_blocks(int64_t P, int k) {
+    const int64_t per = lanes_per_block(k);
+    return per < 1 ? 0 : (P + per - 1) / per;
+}
+
+extern "C" int64_t branch_blocks(int64_t N) {
+    return (N + ROOTS_PER_BLOCK - 1) / ROOTS_PER_BLOCK;
+}
+
+// Device-memory scratch bytes per root that a look-ahead of frontier
+// width W keeping H appended bases of k-mers of k bases needs: 0 when
+// the frontiers of a block's roots fit its shared memory.
+extern "C" int64_t branch_scratch_bytes(int W, int H, int k) {
+    return scratch_bytes(W, H, k);
+}
+
 // buf: uint8 [P, BUF]; length/f/r/seed_canon: int64 [P]; status: int8
 // [P]; has_prev: bool [P]; tab: int64 [size + 8], size a power of two.
 // All contiguous and updated in place.  The caller checks P >= 1,
-// k <= BUF and P < 2^31.
+// k <= BUF, k < 4096 and P < 2^31.
 extern "C" int walk_launch(uint8_t* buf, int64_t P, int64_t BUF,
                            int64_t* length, int64_t* f, int64_t* r,
                            int8_t* status, const int64_t* seed_canon,
@@ -150,19 +252,18 @@ extern "C" int walk_bloom_launch(uint8_t* buf, int64_t P, int64_t BUF,
                     k, max_steps, stream);
 }
 
-// roots: uint8 [N, k]; f0/r0: int64 [N]; tab: int64 [size + 8]; scratch
-// fs/rs: int64 [2 * W * N], hist: uint8 [2 * W * H * N] (H = max_depth
-// - k if positive, else 0 and hist may be null); depth: int32 [N];
+// roots: uint8 [N, k]; f0/r0: int64 [N]; tab: int64 [size + 8]; H =
+// max_depth - k if positive, else 0; scratch: uint8 [N *
+// branch_scratch_bytes(W, H, k)], null when that is 0; depth: int32 [N];
 // probes (may be null): int64 [N] solidity tests per root.  The caller
 // checks N >= 1, W >= 1 and N < 2^31.
 extern "C" int branch_launch(const uint8_t* roots, int64_t N, int k,
                              const int64_t* f0, const int64_t* r0,
                              const int64_t* tab, int64_t size, int max_depth,
-                             int W, int64_t* fs, int64_t* rs, uint8_t* hist,
-                             int H, int32_t* depth, int64_t* probes,
-                             void* stream) {
+                             int W, int H, uint8_t* scratch, int32_t* depth,
+                             int64_t* probes, void* stream) {
     return branch_run(roots, N, k, f0, r0, table_solid(tab, size), max_depth,
-                      W, fs, rs, hist, H, depth, probes, stream);
+                      W, H, scratch, depth, probes, stream);
 }
 
 // branch_launch on a counting Bloom filter (see walk_bloom_launch).
@@ -170,12 +271,11 @@ extern "C" int branch_bloom_launch(const uint8_t* roots, int64_t N, int k,
                                    const int64_t* f0, const int64_t* r0,
                                    const uint8_t* counters, int64_t size,
                                    int hash_k, int num_hashes, int threshold,
-                                   int max_depth, int W, int64_t* fs,
-                                   int64_t* rs, uint8_t* hist, int H,
-                                   int32_t* depth, int64_t* probes,
-                                   void* stream) {
+                                   int max_depth, int W, int H,
+                                   uint8_t* scratch, int32_t* depth,
+                                   int64_t* probes, void* stream) {
     return branch_run(roots, N, k, f0, r0,
                       bloom_solid(counters, size, hash_k, num_hashes,
                                   threshold),
-                      max_depth, W, fs, rs, hist, H, depth, probes, stream);
+                      max_depth, W, H, scratch, depth, probes, stream);
 }

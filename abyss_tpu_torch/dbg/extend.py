@@ -18,11 +18,12 @@ the stuck minority between device loops.
 
 PyTorch idiom: on a CUDA device the JAX loops are hand-written kernels
 (csrc/walk.cu): `fast_extend`'s `lax.while_loop` is one launch that
-walks each lane on its own thread, and `branch_depths`' `lax.scan` one
-launch that searches from each root on its own thread; each has a
-variant for the walk table of a sorted filter and one for a counting
-Bloom filter (`ext.walk_filter` picks the structure).  On the CPU they
-are Python loops of tensor ops (`fast_extend_plain`,
+walks each lane with a group of 8 threads (a step's 8 probes in flight
+at once), and `branch_depths`' `lax.scan` one launch that searches from
+each root with a warp (a thread per child of up to 8 frontier k-mers at
+once); each has a variant for the walk table of a sorted filter and one
+for a counting Bloom filter (`ext.walk_filter` picks the structure).
+On the CPU they are Python loops of tensor ops (`fast_extend_plain`,
 `branch_depths_plain`, the versions the kernels are held against).
 Testing "any lane still ACTIVE" there is a sync, so the walk loop tests
 it after 1, 2, 4, ... up to CHECK_MAX steps; a step leaves non-ACTIVE
@@ -204,12 +205,13 @@ def fast_extend(cbf, st: ExtendState, k: int,
     """Advance all unambiguous paths up to max_steps bases.
 
     On a CUDA device this is one launch of the walk kernel
-    (csrc/walk.cu, a thread per lane, updating the state in place; the
-    walk filter must be ext.walk_filter's ProbeSet or a
-    CountingBloomFilter).  On the CPU it is the plain loop of `_step`,
-    run until no lane is ACTIVE or max_steps steps have run; the
-    condition is tested after 1, 2, 4, ... CHECK_MAX steps (extra steps
-    are no-ops on non-ACTIVE lanes).  Both update st.buf in place."""
+    (csrc/walk.cu, a group of 8 threads per lane, one per candidate of a
+    step, updating the state in place; the walk filter must be
+    ext.walk_filter's ProbeSet or a CountingBloomFilter).  On the CPU it
+    is the plain loop of `_step`, run until no lane is ACTIVE or
+    max_steps steps have run; the condition is tested after 1, 2, 4, ...
+    CHECK_MAX steps (extra steps are no-ops on non-ACTIVE lanes).  Both
+    update st.buf in place."""
     if st.buf.is_cuda:
         kernels.walk(_kernel_solid("fast_extend", cbf), st.buf, st.length,
                      st.f, st.r, st.status, st.seed_canon, st.has_prev, k,
@@ -258,9 +260,9 @@ def branch_depths(cbf, root_codes: torch.Tensor, root_hashes, k: int,
 
     root_codes: uint8[N, k]; root_hashes: (f, r) int64[N].
     Returns int32[N].  On a CUDA device this is one launch of the branch
-    kernel (csrc/walk.cu, a thread per root; the walk filter must be
-    ext.walk_filter's ProbeSet or a CountingBloomFilter); on the CPU,
-    branch_depths_plain."""
+    kernel (csrc/walk.cu, a warp per root, a thread per child of up to
+    8 frontier k-mers at once; the walk filter must be ext.walk_filter's
+    ProbeSet or a CountingBloomFilter); on the CPU, branch_depths_plain."""
     f0, r0 = root_hashes
     if f0.is_cuda:
         return kernels.branch(_kernel_solid("branch_depths", cbf),

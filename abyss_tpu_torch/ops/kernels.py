@@ -150,20 +150,33 @@ def _bind_walk(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lane = [P, I64, I64, P, P, P, P, P, P]
     root = [P, I64, I, P, P]
-    branch_rest = [I, I, P, P, P, I, P, P, P]
-    for name, args in (
-            ("walk_launch", lane + [P, I64, I, I64, P]),
-            ("walk_bloom_launch", lane + [P, I64, I, I, I, I, I64, P]),
-            ("branch_launch", root + [P, I64] + branch_rest),
-            ("branch_bloom_launch", root + [P, I64, I, I, I] + branch_rest)):
+    branch_rest = [I, I, I, P, P, P, P]
+    for name, res, args in (
+            ("walk_launch", I, lane + [P, I64, I, I64, P]),
+            ("walk_bloom_launch", I, lane + [P, I64, I, I, I, I, I64, P]),
+            ("branch_launch", I, root + [P, I64] + branch_rest),
+            ("branch_bloom_launch", I, root + [P, I64, I, I, I] + branch_rest),
+            ("walk_blocks", I64, [I64, I]), ("branch_blocks", I64, [I64]),
+            ("branch_scratch_bytes", I64, [I, I, I])):
         fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
+        fn.restype = res
         fn.argtypes = args
 
 
 def walk_lib() -> ctypes.CDLL:
     """Build (first call) and bind csrc/walk.cu."""
     return _load("walk", "walk.cu", ["walk.cuh", "nthash.cuh"], _bind_walk)
+
+
+def walk_blocks(P: int, k: int) -> int:
+    """Blocks of a walk launch over P lanes of k-mers of k bases
+    (csrc/walk.cu)."""
+    return walk_lib().walk_blocks(P, k)
+
+
+def branch_blocks(N: int) -> int:
+    """Blocks of a look-ahead launch over N roots (csrc/walk.cu)."""
+    return walk_lib().branch_blocks(N)
 
 
 def _check(kernel: str, dev: torch.device, args: dict) -> None:
@@ -233,9 +246,9 @@ def walk(solid, buf: torch.Tensor, length: torch.Tensor,
     for n in ("length", "f", "r", "status", "seed_canon", "has_prev"):
         if tuple(args[n][0].shape) != (P,):
             raise ValueError(f"walk kernel: {n} must have shape [{P}]")
-    if not 1 <= k <= BUF or P >= 1 << 31:
-        raise ValueError(f"walk kernel: need 1 <= k <= BUF and P < 2^31, "
-                         f"got k={k}, buf [{P}, {BUF}]")
+    if not (1 <= k <= BUF and k < 4096 and P < 1 << 31):
+        raise ValueError(f"walk kernel: need 1 <= k <= BUF, k < 4096 and "
+                         f"P < 2^31, got k={k}, buf [{P}, {BUF}]")
     if P == 0 or max_steps <= 0:
         return
     lib = walk_lib()
@@ -259,8 +272,12 @@ def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
     solid: the walk table or a CountingBloomFilter, as for `walk` (the
     Bloom variant counts as launches["branch_bloom"]); roots: uint8
     [N, k]; f0/r0: int64 [N] the roots' hashes; all contiguous on one
-    CUDA device.  `probes` (int64 [N]), if given, receives the solidity
-    tests each root made."""
+    CUDA device.  `probes` (int64 [N]), if given, receives each root's
+    solidity tests as a sequential scan of each step's children in
+    (parent, base) order makes them, up to the step's width-th solid
+    child (the kernel's group of threads tests a step's children all at
+    once).  A root's frontier lives in shared memory, or in scratch
+    allocated here when a block's frontiers do not fit there."""
     dev = roots.device
     args = dict(roots=(roots, torch.uint8),
                 f0=(f0, torch.int64), r0=(r0, torch.int64))
@@ -274,26 +291,27 @@ def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
     for n in ("f0", "r0", "probes"):
         if n in args and tuple(args[n][0].shape) != (N,):
             raise ValueError(f"branch kernel: {n} must have shape [{N}]")
-    if width < 1 or max_depth < 0 or N >= 1 << 31:
-        raise ValueError(f"branch kernel: need width >= 1, max_depth >= 0 "
-                         f"and N < 2^31, got {width}, {max_depth}, {N}")
+    if not (1 <= width < 1 << 24 and 0 <= max_depth < 1 << 31
+            and N < 1 << 31):
+        raise ValueError(f"branch kernel: need 1 <= width < 2^24, "
+                         f"0 <= max_depth < 2^31 and N < 2^31, got {width}, "
+                         f"{max_depth}, {N}")
     depth = torch.zeros(N, dtype=torch.int32, device=dev)
     if N == 0:
         return depth
     H = max(max_depth - k, 0)
-    fs = torch.empty(2 * width * N, dtype=torch.int64, device=dev)
-    rs = torch.empty_like(fs)
-    hist = torch.empty(2 * width * H * N, dtype=torch.uint8, device=dev) \
-        if H else None
     lib = walk_lib()
+    # frontiers live in shared memory unless a block's do not fit there
+    per_root = lib.branch_scratch_bytes(width, H, k)
+    scratch = torch.empty(N * per_root, dtype=torch.uint8, device=dev) \
+        if per_root else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, name + "_launch")(
             roots.data_ptr(), N, k, f0.data_ptr(), r0.data_ptr(),
-            *solid_args, max_depth, width, fs.data_ptr(),
-            rs.data_ptr(), hist.data_ptr() if H else None, H,
-            depth.data_ptr(), probes.data_ptr() if probes is not None
-            else None, stream)
+            *solid_args, max_depth, width, H,
+            scratch.data_ptr() if per_root else None, depth.data_ptr(),
+            probes.data_ptr() if probes is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1

@@ -280,11 +280,16 @@ def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
         work.seed_canon, work.has_prev, k, steps), 10, flush=reset)
     plain_ms = median_ms(lambda: ext.fast_extend_plain(wf, work, k, steps),
                          3, flush=reset)
+    # the longest lane's steps: a chain of dependent probe rounds
+    chain = int((adv + (status != ext.ACTIVE)).max())
     row = dict(phase="kernel", kernel="walk" + variant, lanes=P,
                buf=k + steps, k=k, max_steps=steps,
-               filter_bytes=int(solid.numel() if variant == "" else
+               filter_bytes=int(solid.numel() * solid.element_size()
+                                if variant == "" else
                                 solid.counters.numel()),
-               lane_steps=lane_steps,
+               lane_steps=lane_steps, chain_steps=chain,
+               us_per_chain_step=ms * 1e3 / chain,
+               grid_blocks=kernels.walk_blocks(P, k),
                outcomes={ext.STATUS_NAMES[int(c)]: int((status == c).sum())
                          for c in np.unique(status)},
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
@@ -331,9 +336,12 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
     plain_ms = median_ms(lambda: ext.branch_depths_plain(
         wf, roots, (f0, r0), k, k, width), 3,
         flush=lambda: flush_buf.fill_(1))
+    chain = int(plain.max())   # the deepest root's depth
     row = dict(phase="kernel", kernel="branch" + variant, roots=N, k=k,
                max_depth=k,
-               width=width, probes=n_probes,
+               width=width, probes=n_probes, chain_steps=chain,
+               us_per_chain_step=ms * 1e3 / max(chain, 1),
+               grid_blocks=kernels.branch_blocks(N),
                depth_hist={int(d): int(n) for d, n in zip(
                    *torch.unique(plain, return_counts=True))},
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,

@@ -9,6 +9,8 @@ csrc/); without one they skip.  Run them on the card with
 machine need not have.)
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from abyss_tpu_torch.ops import kernels
 from abyss_tpu_torch.ops import nthash
 from abyss_tpu_torch.ops import scatter_max as tsm
 from abyss_tpu_torch.ops import sorted_filter as tsf
+from tests import test_torch_kernel_host as host
 
 # the suite runs in several worker processes at once: one intra-op
 # thread each keeps torch's many small CPU ops from oversubscribing
@@ -90,7 +93,32 @@ def test_walk_bloom_kernel_matches_plain(cuda, max_steps):
     check_walk(cuda, max_steps, bloom=True)
 
 
-def check_walk(cuda, max_steps, bloom):
+@pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
+def test_walk_kernel_odd_lane_count(cuda, bloom):
+    """37 lanes, not a multiple of the 4 lanes a warp walks, and lanes
+    of one warp stopping at different steps."""
+    st0, a = check_walk(cuda, 300, bloom, lanes=37)
+    steps = (a.length - st0.length).cpu().numpy() + \
+        (a.status.cpu().numpy() != 0)
+    assert any(len(set(steps[w:w + 4])) > 1 for w in range(0, 37, 4))
+
+
+def test_walk_kernel_refuses_k_beyond_rings(cuda):
+    """k >= 4096: a lane's rings of bases would not fit a block's shared
+    memory, and the wrapper raises before it launches."""
+    k = 4096
+    st = ext.init_state(np.zeros((2, k), np.uint8), k + 8, k, cuda)
+    tab = torch.full((1024 + 8,), -1, dtype=torch.int64, device=cuda)
+    launched = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.walk(tab, st.buf, st.length, st.f, st.r, st.status,
+                     st.seed_canon, st.has_prev, k, 10)
+    assert kernels.launches == launched
+
+
+def check_walk(cuda, max_steps, bloom, lanes=300):
+    """Kernel and plain walks agree on every state field; returns the
+    state before and the kernel's after."""
     k = 25
     genome = sim.genome_with_repeats(5000, seed=3, n_repeats=3,
                                      repeat_len=200)
@@ -98,7 +126,7 @@ def check_walk(cuda, max_steps, bloom):
                                    error_rate=0.01, seed=4)
     seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
     wf, variant = walk_filter(seqs, k, 2, bloom, cuda)
-    seeds = np.stack([alphabet.encode(s[:k]) for s in seqs[:300]])
+    seeds = np.stack([alphabet.encode(s[:k]) for s in seqs[:lanes]])
     st0 = ext.init_state(seeds, k + 400, k, cuda,
                          prev_base=np.zeros(len(seeds), np.uint8))
     fields = ("buf", "length", "f", "r", "status", "has_prev")
@@ -110,6 +138,7 @@ def check_walk(cuda, max_steps, bloom):
     b = ext.fast_extend_plain(wf, b, k, max_steps)
     for n in fields:
         assert torch.equal(getattr(a, n), getattr(b, n)), n
+    return st0, a
 
 
 @pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
@@ -120,6 +149,37 @@ def test_branch_kernel_matches_plain(cuda, max_depth, width):
 @pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
 def test_branch_bloom_kernel_matches_plain(cuda, max_depth, width):
     check_branch(cuda, max_depth, width, bloom=True)
+
+
+@pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
+@pytest.mark.parametrize("k,max_depth,width", [
+    (11, 20, 1), (11, 20, 2), (11, 20, 3), (11, 30, 24), (11, 30, 40),
+    (11, 30, 200), (11, 400, 16)])
+def test_branch_kernel_frontier_widths(cuda, k, max_depth, width, bloom):
+    """The host tests' look-ahead cases on the card: width 1, widths 2
+    and 3 (the W-th solid child inside a parent's children), widths
+    wider than a round and than a group; and frontiers too large for
+    shared memory (a width of 200, or 389 appended bases), which live
+    in device-memory scratch.  Depths equal the plain version's, probes the g++
+    harness's and the sequential count."""
+    seqs, roots = host.branch_roots(k, max_depth)
+    wf, variant = walk_filter(seqs, k, 1, bloom, cuda)
+    t = torch.from_numpy(roots).to(cuda)
+    hashes = nthash.hash_base(t, k)
+    probes = torch.zeros(len(roots), dtype=torch.int64, device=cuda)
+    launched = kernels.launches["branch" + variant]
+    d = kernels.branch(ext._kernel_solid("branch", wf), t, *hashes, k,
+                       max_depth, width, probes)
+    assert kernels.launches["branch" + variant] == launched + 1
+    assert torch.equal(d, ext.branch_depths_plain(wf, t, hashes, k,
+                                                  max_depth, width))
+    seq, _ = host.sequential_probes(wf, t, hashes, k, max_depth, width)
+    assert torch.equal(probes, seq)
+    if shutil.which("g++") is not None:
+        hw = host.walk_filter(seqs, k, min_cov=1, bloom=bloom)
+        _, hp = host.harness_branch(host.build_harness(), hw, roots, k,
+                                    max_depth, width)
+        assert np.array_equal(probes.cpu().numpy(), hp)
 
 
 def check_branch(cuda, max_depth, width, bloom):

@@ -40,6 +40,11 @@ I64 = ctypes.c_int64
 def harness():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
+    return build_harness()
+
+
+def build_harness():
+    """Build csrc/host_harness.cpp with g++ and bind its functions."""
     src = os.path.join(kernels.CSRC, "host_harness.cpp")
     so = build_library(
         "host_harness", ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
@@ -50,15 +55,15 @@ def harness():
     lib.nthash_host.argtypes = [P_, I64, I64, ctypes.c_int, P_, P_, P_, P_]
     lib.branch_host.restype = None
     lib.branch_host.argtypes = [P_, I64, ctypes.c_int, P_, P_, P_, I64,
-                                ctypes.c_int, ctypes.c_int, P_, P_, P_,
-                                ctypes.c_int, P_, P_]
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                P_, P_]
     lib.walk_host.restype = None
     lib.walk_host.argtypes = [P_, I64, I64, P_, P_, P_, P_, P_, P_, P_, I64,
                               ctypes.c_int, I64]
     I = ctypes.c_int
     lib.branch_bloom_host.restype = None
     lib.branch_bloom_host.argtypes = [P_, I64, I, P_, P_, P_, I64, I, I, I,
-                                      I, I, P_, P_, P_, I, P_, P_]
+                                      I, I, I, P_, P_]
     lib.walk_bloom_host.restype = None
     lib.walk_bloom_host.argtypes = [P_, I64, I64, P_, P_, P_, P_, P_, P_, P_,
                                     I64, I, I, I, I, I64]
@@ -201,10 +206,21 @@ def test_walk_bloom_body_matches_plain_on_reads(harness, max_steps,
     check_walk_on_reads(harness, max_steps, buf_extra, bloom=True)
 
 
-def check_walk_on_reads(harness, max_steps, buf_extra, bloom):
+@pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
+def test_walk_body_odd_lane_count(harness, bloom):
+    """37 lanes, not a multiple of the 4 lanes a warp walks (WALK_GROUP
+    = 8 members each), and lanes of one warp stopping at different
+    steps."""
+    st0, st = check_walk_on_reads(harness, 300, 200, bloom, lanes=37)
+    steps = (st.length - st0.length).numpy() + (st.status.numpy() != 0)
+    assert any(len(set(steps[w:w + 4])) > 1 for w in range(0, 37, 4))
+
+
+def check_walk_on_reads(harness, max_steps, buf_extra, bloom, lanes=96):
     """Lanes seeded from simulated reads of a genome with repeats and
     errors: tips, bubbles and repeats stop them NEED_F / NEED_B, and a
-    short buffer stops the rest CHUNK_LIMIT."""
+    short buffer stops the rest CHUNK_LIMIT.  Returns the state before
+    and after."""
     k = 25
     genome = sim.genome_with_repeats(3000, seed=3, n_repeats=2,
                                      repeat_len=200)
@@ -213,15 +229,17 @@ def check_walk_on_reads(harness, max_steps, buf_extra, bloom):
     seqs = [seq for _, seq, _ in pr.reads1 + pr.reads2]
     wf = walk_filter(seqs, k, min_cov=2, bloom=bloom)
     rng = np.random.default_rng(5)
-    picks = rng.choice(len(seqs), size=96, replace=False)
+    picks = rng.choice(len(seqs), size=lanes, replace=False)
     seeds = np.stack([alphabet.encode(seqs[i][10:10 + k]) for i in picks])
-    st = text.init_state(seeds, k + buf_extra, k, "cpu")
+    st0 = text.init_state(seeds, k + buf_extra, k, "cpu")
     launched = dict(kernels.launches)
-    s = harness_walk(harness, wf, st, k, max_steps)
-    st = text.fast_extend(wf, st, k, max_steps)
+    s = harness_walk(harness, wf, st0, k, max_steps)
+    st = text.fast_extend(wf, st0._replace(buf=st0.buf.clone()), k,
+                          max_steps)
     assert kernels.launches == launched    # CPU: plain version
     assert len(set(st.status.tolist())) >= 3
     assert_same(s, st)
+    return st0, st
 
 
 def harness_branch(harness, wf, roots, k, max_depth, width):
@@ -232,15 +250,57 @@ def harness_branch(harness, wf, roots, k, max_depth, width):
     keep, args = solid_args(wf)
     fn = harness.branch_bloom_host if isinstance(
         wf, tbloom.CountingBloomFilter) else harness.branch_host
-    H = max(max_depth - k, 0)
-    fs = np.zeros(2 * width * N, np.uint64)
-    rs = np.zeros_like(fs)
-    hist = np.zeros(max(2 * width * H * N, 1), np.uint8)
     depth = np.zeros(N, np.int32)
     probes = np.zeros(N, np.int64)
     fn(ptr(roots), N, k, ptr(f0), ptr(r0), *args, max_depth, width,
-       ptr(fs), ptr(rs), ptr(hist), H, ptr(depth), ptr(probes))
+       max(max_depth - k, 0), ptr(depth), ptr(probes))
     return depth, probes
+
+
+def sequential_probes(wf, roots, hashes, k, max_depth, width):
+    """What a sequential look-ahead tests: each step scans its frontier's
+    children in (parent, base) order up to and including the W-th solid
+    one, or all 4 of each parent when fewer are solid.  Returns (probes
+    int64 [N], splits): splits counts the steps at which the W-th solid
+    child has a solid sibling after it, which the frontier drops though
+    it keeps an earlier child of the same parent.  branch_depths_plain's
+    steps, counted."""
+    f0, r0 = hashes
+    N, W = f0.shape[0], width
+    dev = f0.device
+    codes = roots[:, None, :].expand(N, W, k)
+    f = f0[:, None].expand(N, W)
+    r = r0[:, None].expand(N, W)
+    alive = torch.zeros((N, W), dtype=torch.bool, device=dev)
+    alive[:, 0] = True
+    probes = torch.zeros(N, dtype=torch.int64, device=dev)
+    splits = 0
+    bases = torch.arange(4, device=dev)
+    appended = torch.arange(4, dtype=torch.uint8, device=dev)[
+        None, None, :, None].expand(N, W, 4, 1)
+    for _ in range(max_depth):
+        fc, rc = tnt.roll_right(f[..., None], r[..., None], k,
+                                codes[:, :, 0, None], bases[None, None, :])
+        solid = wf.contains(u64.umin(fc, rc)) & alive[..., None]
+        child_alive = solid.reshape(N, W * 4)
+        cum = child_alive.cumsum(dim=1)
+        full = cum[:, -1] >= W
+        at = (cum >= W).to(torch.uint8).argmax(dim=1)   # the W-th solid
+        probes += torch.where(full, at + 1, 4 * alive.sum(dim=1))
+        after = at[:, None] + torch.arange(1, 4, device=dev)
+        later = child_alive.gather(1, torch.clamp(after, max=4 * W - 1))
+        same_parent = after // 4 == (at // 4)[:, None]
+        splits += int((full & (later & same_parent).any(dim=1)).sum())
+        child_codes = torch.cat(
+            [codes[:, :, None, 1:].expand(N, W, 4, k - 1), appended],
+            dim=-1).reshape(N, W * 4, k)
+        order = torch.argsort((~child_alive).to(torch.uint8), dim=1,
+                              stable=True)[:, :W]
+        codes = child_codes.gather(1, order[..., None].expand(N, W, k))
+        f = fc.reshape(N, W * 4).gather(1, order)
+        r = rc.reshape(N, W * 4).gather(1, order)
+        alive = child_alive.gather(1, order)
+    return probes, splits
 
 
 @pytest.mark.parametrize("k,max_depth,width", [
@@ -255,39 +315,60 @@ def test_branch_bloom_body_matches_plain(harness, k, max_depth, width):
     check_branch(harness, k, max_depth, width, bloom=True)
 
 
-def check_branch(harness, k, max_depth, width, bloom):
-    """Roots inside reads and one base off them (tips and bubbles of
-    read errors), some with an N, and roots near the genome's end (every
-    depth up to max_depth); depths past k need the frontier's appended
-    bases (max_depth > k)."""
+@pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
+@pytest.mark.parametrize("k,max_depth,width", [
+    (11, 20, 1), (11, 20, 2), (11, 20, 3), (11, 30, 24), (11, 30, 40)])
+def test_branch_body_frontier_widths(harness, k, max_depth, width, bloom):
+    """Width 1; widths 2 and 3, where a step's W-th solid child falls
+    inside a parent's four children with a solid sibling after it; and
+    frontiers wider than a round's 8 slots and than the group of
+    BRANCH_GROUP = 32 members, searched in several rounds a step."""
+    splits = check_branch(harness, k, max_depth, width, bloom)
+    if width in (2, 3):
+        assert splits > 0
+
+
+def branch_roots(k, max_depth):
+    """(walk filter inputs, roots) of the look-ahead cases: roots inside
+    reads and one base off them (tips and bubbles of read errors), one
+    with an N, and roots d bases before the genome's end for every
+    d <= max_depth + 1."""
     genome = sim.genome_with_repeats(3000, seed=6, n_repeats=2,
                                      repeat_len=150)
     pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
                                    error_rate=0.01, seed=7)
     seqs = [seq for _, seq, _ in pr.reads1 + pr.reads2]
-    # every read k-mer solid: error k-mers make tips and bubbles, and
-    # the genome's own k-mers reach its very end
-    wf = walk_filter(seqs + [genome], k, min_cov=1, bloom=bloom)
     rng = np.random.default_rng(8)
     roots = [alphabet.encode(seqs[i][20:20 + k])
              for i in rng.choice(len(seqs), 150, replace=False)]
-    # roots d bases before the genome's end reach depth about d
     g = alphabet.encode(genome)
     roots += [g[len(g) - k - d:len(g) - d] for d in range(max_depth + 2)]
     roots = np.stack(roots)
     roots[:150:3, -1] = (roots[:150:3, -1] + 1) % 4
     roots[5, 3] = 4
+    # every read k-mer solid: error k-mers make tips and bubbles, and
+    # the genome's own k-mers reach its very end
+    return seqs + [genome], roots
+
+
+def check_branch(harness, k, max_depth, width, bloom):
+    """The harness's depths equal branch_depths_plain's on branch_roots,
+    which reach at least 3 depths; depths past k need the frontier's
+    appended bases (max_depth > k).  Its probes equal the sequential
+    count; returns that count's splits."""
+    seqs, roots = branch_roots(k, max_depth)
+    wf = walk_filter(seqs, k, min_cov=1, bloom=bloom)
     depth, probes = harness_branch(harness, wf, roots, k, max_depth, width)
     t = torch.from_numpy(roots)
+    hashes = tnt.hash_base(t, k)
     launched = dict(kernels.launches)
-    plain = text.branch_depths(wf, t, tnt.hash_base(t, k), k, max_depth,
-                               width).numpy()
+    plain = text.branch_depths(wf, t, hashes, k, max_depth, width).numpy()
     assert kernels.launches == launched    # CPU: plain version
     assert len(set(plain.tolist())) >= 3
     np.testing.assert_array_equal(depth, plain)
-    # a probe at least for each step run, at most 4 per frontier k-mer
-    assert (probes >= np.minimum(depth + 1, max_depth)).all()
-    assert (probes <= 4 * width * max_depth).all()
+    seq, splits = sequential_probes(wf, t, hashes, k, max_depth, width)
+    np.testing.assert_array_equal(probes, seq.numpy())
+    return splits
 
 
 def test_walk_wrappers_refuse_cpu_tensors():
