@@ -9,6 +9,7 @@
 // tests/test_torch_kernel_host.py holds the results bit-identical to the
 // plain PyTorch versions.
 
+#include <stddef.h>
 #include <stdint.h>
 
 #include <vector>
@@ -17,31 +18,50 @@
 #include "scatter_max.cuh"
 #include "walk.cuh"
 
-// nthash.cu: block (row, tile), thread tid; canon/valid go through the
-// block's shared arrays, fwd/rev straight to the outputs.
+// nthash.cu: every block of the layout (rows, seg), each thread in turn
+// through the scan, then each strip that needs hashing; the block's bases
+// and its canon/valid go through arrays laid out as the kernel's shared
+// memory, fwd/rev straight to the outputs.
 extern "C" void nthash_host(const uint8_t* codes, int64_t B, int64_t L,
-                            int k, uint64_t* canon, uint8_t* valid,
-                            uint64_t* fwd, uint64_t* rev) {
+                            int k, int rows, int seg, uint64_t* canon,
+                            uint8_t* valid, uint64_t* fwd, uint64_t* rev) {
     const int64_t W = L - k + 1;
-    const int64_t ntiles = (W + nthash::TILE - 1) / nthash::TILE;
+    const int64_t ntiles = (W + seg - 1) / seg;
+    const int64_t blocks = (B + rows - 1) / rows * ntiles;
     nthash::Tables tab;
     nthash::make_tables(tab, k);
-    uint64_t s_canon[nthash::TILE];
-    uint8_t s_valid[nthash::TILE];
-    for (int64_t row = 0; row < B; ++row)
-        for (int64_t tile = 0; tile < ntiles; ++tile) {
-            const int64_t w0 = tile * nthash::TILE;
-            const int nw = int(W - w0 < nthash::TILE ? W - w0 : nthash::TILE);
-            const uint8_t* src = codes + row * L + w0;
-            const int64_t out0 = row * W + w0;
-            for (int tid = 0; tid < nthash::THREADS; ++tid)
-                nthash::tile_thread(src, nw, k, tid, tab, s_canon, s_valid,
-                                    fwd + out0, rev + out0);
-            for (int i = 0; i < nw; ++i) {
-                canon[out0 + i] = s_canon[i];
-                valid[out0 + i] = s_valid[i];
-            }
+    std::vector<uint8_t> s_codes(size_t(rows) * size_t(seg + k - 1));
+    std::vector<uint64_t> s_canon(nthash::THREADS * nthash::SLOT);
+    std::vector<uint8_t> s_valid(nthash::THREADS * nthash::SLOT);
+    for (int64_t b = 0; b < blocks; ++b) {
+        const int64_t row0 = b / ntiles * rows, w0 = b % ntiles * seg;
+        const int nrows = int(B - row0 < rows ? B - row0 : rows);
+        const int nw = int(W - w0 < seg ? W - w0 : seg);
+        const int ncodes = nrows * (nw + k - 1);
+        for (int i = 0; i < ncodes; ++i) s_codes[i] = codes[row0 * L + w0 + i];
+        const int64_t out0 = row0 * W + w0;
+        uint64_t* f = fwd != nullptr ? fwd + out0 : nullptr;
+        uint64_t* r = rev != nullptr ? rev + out0 : nullptr;
+        std::vector<int> list;
+        for (int tid = 0; tid < nthash::THREADS; ++tid)
+            if (nthash::scan_strip(s_codes.data(), nrows, nw, k, tid,
+                                   s_canon.data(), s_valid.data(), f, r))
+                list.push_back(tid);
+        for (int sid : list)
+            nthash::hash_strip(s_codes.data(), nrows, nw, k, sid, tab,
+                               s_canon.data(), s_valid.data(), f, r);
+        for (int i = 0; i < nrows * nw; ++i) {
+            canon[out0 + i] = s_canon[nthash::out_slot(i, nw)];
+            valid[out0 + i] = s_valid[nthash::out_slot(i, nw)];
         }
+    }
+}
+
+// nthash.cu's geometry: THREADS, STRIP, PACK_CODES.
+extern "C" void nthash_geometry(int* out) {
+    out[0] = nthash::THREADS;
+    out[1] = nthash::STRIP;
+    out[2] = nthash::PACK_CODES;
 }
 
 namespace {

@@ -2,9 +2,9 @@
 //
 // Every function here is `__host__ __device__` and plain C++ otherwise,
 // so g++ compiles this header too: the CPU test suite loops
-// `tile_thread` over the same grid the kernel launches and holds the
-// result bit-identical to the port's plain PyTorch version
-// (ops/nthash.kmer_hashes_plain).
+// `scan_strip` and `hash_strip` over the same grids the kernel launches, in both
+// layouts, and holds the result bit-identical to the port's plain
+// PyTorch version (ops/nthash.kmer_hashes_plain).
 //
 // Definitions (ntHash, Mohamadi et al. 2016; abyss_tpu/ops/nthash.py):
 // srol rotates the low 33 bits and the high 31 bits of a word
@@ -17,6 +17,9 @@
 // O(k), then rolls to the next window in O(1):
 //   fwd(i+1) = srol(fwd(i)) ^ srol^k(F[s(i)]) ^ F[s(i+k)]
 //   rev(i+1) = sror(rev(i) ^ R[s(i)] ^ srol^k(R[s(i+k)]))
+// A strip whose bases are all codes >= 4 (a padded read's tail) has
+// every seed 0, so its windows are 0 with valid false: it writes them
+// without any arithmetic.
 
 #pragma once
 
@@ -40,12 +43,19 @@ constexpr uint64_t M31 = (1ULL << 31) - 1;
 constexpr uint64_t MULTI_SEED = 0x90B45D39FB6DA1FAULL;
 constexpr int MULTI_SHIFT = 27;
 
-// Launch geometry, shared with the host harness: a block of THREADS
-// threads covers TILE consecutive windows of one row, each thread a
-// strip of STRIP windows.
-constexpr int THREADS = 64;
-constexpr int STRIP = 8;
+// Launch geometry, shared with the host harness.  A block of THREADS
+// threads hashes at most TILE windows, each thread a strip of up to
+// STRIP consecutive windows of one row, in one of two layouts:
+//   tile:   one segment of up to `seg` <= TILE windows of one row;
+//   packed: `rows` > 1 whole rows of W windows each, rows whose strips
+//           fit THREADS (rows * ceil(W / STRIP) <= THREADS) and whose
+//           bases fit PACK_CODES (rows * L <= PACK_CODES).
+// ops/kernels.nthash_layout picks one from the shape.  The block stages
+// the bases it reads and the canon/valid it writes in shared memory.
+constexpr int THREADS = 256;
+constexpr int STRIP = 16;
 constexpr int TILE = THREADS * STRIP;
+constexpr int PACK_CODES = 8192;
 
 // Seed of base code c (0..3 = A,C,G,T; 4 = N/padding) on the forward
 // (strand 0) or reverse-complement (strand 1) strand.
@@ -64,18 +74,18 @@ NT_HD uint64_t srol(uint64_t v, int n) {
     return (hi << 33) | lo;
 }
 
+// srol(v, 1) as one 64-bit shift and two bit moves: v << 1 is right
+// except for bit 32 (goes to bit 0, not 33) and bit 63 (goes to 33).
 NT_HD uint64_t srol1(uint64_t v) {
-    uint64_t lo = v & M33, hi = v >> 33;
-    lo = ((lo << 1) | (lo >> 32)) & M33;
-    hi = ((hi << 1) | (hi >> 30)) & M31;
-    return (hi << 33) | lo;
+    return ((v << 1) & ~(1ULL << 33)) | ((v >> 32) & 1) |
+           ((v >> 30) & (1ULL << 33));
 }
 
+// The inverse: v >> 1 is right except for bit 0 (goes to bit 32) and
+// bit 33 (goes to bit 63, not 32).
 NT_HD uint64_t sror1(uint64_t v) {
-    uint64_t lo = v & M33, hi = v >> 33;
-    lo = (lo >> 1) | ((lo & 1) << 32);
-    hi = (hi >> 1) | ((hi & 1) << 30);
-    return (hi << 33) | lo;
+    return ((v >> 1) & ~(1ULL << 32)) | ((v & 1) << 32) |
+           ((v & (1ULL << 33)) << 30);
 }
 
 // Seeds and k-rotated seeds, indexed by code 0..4.
@@ -101,19 +111,31 @@ NT_HD uint64_t nte64(uint64_t h, int k, int i) {
     return t ^ (t >> MULTI_SHIFT);
 }
 
+// Whether the nwin windows from codes[0] (codes[0 .. nwin+k-2]) hold a
+// base.  The first code says so for most strips; else the rest are read
+// 8 at a time, all 8 loads at once.
+NT_HD bool has_base(const uint8_t* codes, int k, int nwin) {
+    const int span = nwin + k - 1;
+    bool base = codes[0] < 4;
+    for (int j = 1; j < span && !base; j += 8)
+        for (int u = 0; u < 8; ++u) base |= j + u < span && codes[j + u] < 4;
+    return base;
+}
+
 // Hash nwin >= 1 consecutive windows whose first base is codes[0]
 // (codes[0 .. nwin+k-2] readable).  fwd/rev may be null.
 NT_HD void strip(const uint8_t* codes, int k, int nwin, const Tables& t,
                  uint64_t* canon, uint8_t* valid, uint64_t* fwd,
                  uint64_t* rev) {
+    // the first window: both strands' chains side by side
     uint64_t f = 0, r = 0;
     int nbad = 0;
     for (int j = 0; j < k; ++j) {
         const int c = clamp_code(codes[j]);
         f = srol1(f) ^ t.f[c];
+        r = srol1(r) ^ t.r[clamp_code(codes[k - 1 - j])];
         nbad += c == 4;
     }
-    for (int j = k - 1; j >= 0; --j) r = srol1(r) ^ t.r[clamp_code(codes[j])];
     for (int i = 0;; ++i) {
         canon[i] = f < r ? f : r;
         valid[i] = nbad == 0;
@@ -127,18 +149,68 @@ NT_HD void strip(const uint8_t* codes, int k, int nwin, const Tables& t,
     }
 }
 
-// Thread `tid`'s share of a tile: tile_codes holds the tile's nw + k - 1
-// bases, canon/valid the tile's nw outputs; fwd/rev (may be null) point
-// at the tile's first window in the row's output.
-NT_HD void tile_thread(const uint8_t* tile_codes, int nw, int k, int tid,
-                       const Tables& t, uint64_t* canon, uint8_t* valid,
-                       uint64_t* fwd, uint64_t* rev) {
-    const int s0 = tid * STRIP;
-    if (s0 >= nw) return;
-    const int n = nw - s0 < STRIP ? nw - s0 : STRIP;
-    strip(tile_codes + s0, k, n, t, canon + s0, valid + s0,
-          fwd != nullptr ? fwd + s0 : nullptr,
-          rev != nullptr ? rev + s0 : nullptr);
+// A strip's canon/valid go to its own run of SLOT = STRIP + 1 entries of
+// the block's shared arrays: with runs of STRIP, the 32 threads of a warp
+// would store each step's windows STRIP * 8 bytes apart, all in one bank
+// pair, a 32-way conflict on every store.
+constexpr int SLOT = STRIP + 1;
+
+// Strip `sid` of a block that covers nrows rows of nw windows each
+// (nrows > 1 only in the packed layout, where nw is the whole row): strip
+// sid % spr of row sid / spr, spr the strips a row has.  Sets its row,
+// first window s0 and window count n; false when the block has no
+// strip sid.
+NT_HD bool strip_of(int sid, int nrows, int nw, int& row, int& s0, int& n) {
+    const int spr = (nw + STRIP - 1) / STRIP;
+    row = sid / spr;
+    s0 = (sid % spr) * STRIP;
+    n = nw - s0 < STRIP ? nw - s0 : STRIP;
+    return row < nrows;
+}
+
+// A block hashes in two passes.  First every thread looks at strip tid:
+// a strip that holds no base gets its windows' values here (0, the
+// formula's own value there: every seed is 0) and the call returns
+// false; true means the strip needs hashing.  Then the strips that need
+// it are dealt out again, one to each thread from thread 0 on
+// (hash_strip), so that they fill whole warps: a padded read's strips of
+// padding, two thirds of the main path's, cost no warp the arithmetic.
+// block_codes holds each row's nw + k - 1 bases back to back, canon/valid
+// the block's THREADS * SLOT shared entries; fwd/rev (may be null) point
+// at the block's first window in the output, which is contiguous.
+NT_HD bool scan_strip(const uint8_t* block_codes, int nrows, int nw, int k,
+                      int tid, uint64_t* canon, uint8_t* valid,
+                      uint64_t* fwd, uint64_t* rev) {
+    int row, s0, n;
+    if (!strip_of(tid, nrows, nw, row, s0, n)) return false;
+    if (has_base(block_codes + row * (nw + k - 1) + s0, k, n)) return true;
+    const int o = row * nw + s0;
+    for (int i = 0; i < n; ++i) {
+        canon[tid * SLOT + i] = 0;
+        valid[tid * SLOT + i] = 0;
+        if (fwd != nullptr) fwd[o + i] = 0;
+        if (rev != nullptr) rev[o + i] = 0;
+    }
+    return false;
+}
+
+NT_HD void hash_strip(const uint8_t* block_codes, int nrows, int nw, int k,
+                      int sid, const Tables& t, uint64_t* canon,
+                      uint8_t* valid, uint64_t* fwd, uint64_t* rev) {
+    int row, s0, n;
+    strip_of(sid, nrows, nw, row, s0, n);
+    const int o = row * nw + s0;
+    strip(block_codes + row * (nw + k - 1) + s0, k, n, t, canon + sid * SLOT,
+          valid + sid * SLOT, fwd != nullptr ? fwd + o : nullptr,
+          rev != nullptr ? rev + o : nullptr);
+}
+
+// The shared entry of a block's output e (0 <= e < nrows * nw, in output
+// order), as scan_strip or hash_strip wrote it.
+NT_HD int out_slot(int e, int nw) {
+    const int spr = (nw + STRIP - 1) / STRIP;
+    const int row = e / nw, w = e - row * nw;
+    return (row * spr + w / STRIP) * SLOT + w % STRIP;
 }
 
 }  // namespace nthash

@@ -15,6 +15,7 @@ before the run and reads it after).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import threading
@@ -91,10 +92,45 @@ def _bind_nthash(lib: ctypes.CDLL) -> None:
     lib.nthash_launch.restype = ctypes.c_int
     lib.nthash_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.nthash_tile.restype = ctypes.c_int
-    lib.nthash_tile.argtypes = []
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.geometry = nthash_geometry(lib)
+
+
+def nthash_geometry(lib: ctypes.CDLL) -> tuple[int, int, int]:
+    """(THREADS, STRIP, PACK_CODES) of csrc/nthash.cuh, as a library
+    built from it (the CUDA kernel's, or the g++ harness's) reports."""
+    lib.nthash_geometry.restype = None
+    lib.nthash_geometry.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    lib.nthash_geometry(out)
+    return tuple(out)
+
+
+def nthash_layout(B: int, L: int, k: int, geometry: tuple[int, int, int],
+                  sms: int) -> tuple[int, int]:
+    """(rows, seg) of an ntHash launch over [B, L] codes (csrc/nthash.cu):
+    rows > 1 whole rows a block (packed, seg = W) when at least two rows'
+    strips and bases fit a block, else one segment of seg windows of one
+    row a block (tile).  A tile is a block's worth of strips, or fewer
+    while the grid has fewer blocks than the card's `sms` multiprocessors
+    (a few long rows), down to a warp's worth: the rows then spread over
+    more of the card, each block's chain of phases is shorter."""
+    threads, strip, pack_codes = geometry
+    W = L - k + 1
+    rows = min(threads // -(-W // strip), pack_codes // L, B)
+    if rows >= 2:
+        return rows, W
+    seg = threads * strip
+    while seg > 32 * strip and B * -(-W // seg) < sms:
+        seg //= 2
+    return 1, min(W, seg)
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index: int) -> int:
+    """Multiprocessors of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def nthash_lib() -> ctypes.CDLL:
@@ -108,7 +144,13 @@ def nthash(codes: torch.Tensor, k: int, strands: bool = False):
     codes: uint8 [B, L] contiguous CUDA tensor (codes >= 4 mark N or
     padding).  Returns (canon int64 [B, W], valid bool [B, W], fwd, rev)
     with W = L - k + 1; fwd/rev (int64 [B, W]) only when `strands`,
-    else None.  The same values as ops/nthash.kmer_hashes_plain."""
+    else None.  The same values as ops/nthash.kmer_hashes_plain.  The
+    launch's layout follows the shape (nthash_layout)."""
+    return nthash_launch(codes, k, strands, None)
+
+
+def nthash_launch(codes: torch.Tensor, k: int, strands: bool, layout):
+    """nthash in a given layout (rows, seg), or (None) nthash_layout's."""
     if not codes.is_cuda:
         raise ValueError("nthash kernel: codes must be a CUDA tensor")
     if codes.dtype != torch.uint8:
@@ -130,15 +172,16 @@ def nthash(codes: torch.Tensor, k: int, strands: bool = False):
     if B == 0:
         return canon, valid, fwd, rev
     lib = nthash_lib()
-    tile = lib.nthash_tile()
-    if B * -(-W // tile) >= 1 << 31 or k > 32768:
+    rows, seg = layout or nthash_layout(B, L, k, lib.geometry,
+                                        device_sms(dev.index))
+    if -(-B // rows) * -(-W // seg) >= 1 << 31 or k > 32768:
         raise ValueError(f"nthash kernel: shape [{B}, {L}] with k={k} "
                          "exceeds the launch grid")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nthash_launch(
-            codes.data_ptr(), B, L, k, canon.data_ptr(), valid.data_ptr(),
-            fwd.data_ptr() if strands else None,
+            codes.data_ptr(), B, L, k, rows, seg, canon.data_ptr(),
+            valid.data_ptr(), fwd.data_ptr() if strands else None,
             rev.data_ptr() if strands else None, stream)
     if err != 0:
         raise RuntimeError(f"nthash kernel launch failed: CUDA error {err}")

@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   build   build the CUDA kernels from the sources in this checkout, one
           nvcc process per source, all at once;
   kernel  the ntHash kernel against its plain PyTorch version on the
-          card, bit for bit, with timings, on the main path's batch shape
-          ([4096, 512] codes);
+          card, bit for bit, with timings, on a synthetic batch of the
+          main path's batch shape ([4096, 512] codes);
   parity  the port's bloom-dbg on the GPU and on the CPU writes the same
           FASTA bytes on a small genome with repeats and errors;
   main    the port's main path at real size: `bloom_dbg.assemble` on a
@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
           150 bp reads (40x, substitution error 0.005), k=31, the CLI
           defaults; the kernels' launch counts are reset just before and
           read just after, pass 2's time is split by function, and the
-          contigs are checked against the genome.  Then the walk and
+          contigs are checked against the genome; every ntHash launch
+          is recorded by shape.  Then the ntHash kernel at every shape
+          the run launched (the histogram, each shape timed by a CUDA
+          graph of launches and checked against the plain version, and
+          pass-1 batch 150 of the run).  Then the walk and
           look-ahead kernels against their plain versions, bit for bit,
           with timings, in the walk table that run built: the walk on
           4096 lanes seeded from the first k-mers of its first batch of
@@ -38,8 +42,9 @@ Phases, each printing one JSON line:
           byte-identical to the bloom phase's pass-1 filter.
 
 Then one `kernels` JSON line (each kernel's launches on the path that
-runs it, error against its plain version, times and bound), and as the
-last line
+runs it, error against its plain version, times and bound; for ntHash
+also its times at three shapes and launches x (ms - bound_ms) summed
+over every shape of the main run), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 the last line.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero at once.
@@ -59,7 +64,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
+# H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes (4 partitions of
+# 16, NVIDIA H100 Tensor Core GPU Architecture white paper) x the 1.98 GHz
+# boost clock that its 67 TFLOP/s float32 (132 x 128 lanes x 2) implies
+INT_OPS_PER_S = 132 * 64 * 67e12 / (132 * 128 * 2)
 NTHASH_OPS_PER_WINDOW = 40      # one roll: 2 split-rotations, 6 xor, ...
 # one walk step: 8 rolls, 8 splitmix64 finalizers, 64 slot compares
 WALK_OPS_PER_STEP = 400
@@ -74,7 +82,11 @@ SECTOR_BYTES = 32                 # a random byte update reads + writes one
 # it gives 2^30 one-byte counters
 BLOOM_BYTES = 2 << 30
 BLOOM_TOOL_SIZE = "1G"            # bloom build -b: the same 2^30 counters
-CAPTURE_BATCH = 150               # the pass-1 batch the scatter phase replays
+CAPTURE_BATCH = 150               # the pass-1 batch the replays take
+GRAPH_BYTES = 512 << 20           # outputs a timing graph may hold
+# the codes of each ntHash launch shape of the main run (.gitignore
+# lists the directory)
+SHAPES_FILE = os.path.join(REPO, ".chip_smoke_shapes", "nthash_codes.pt")
 # stage 1 alone breaks unitigs at every recurrent read error: the JAX
 # package's bloom-dbg covers 0.834 (200 kbp) and 0.860 (1 Mbp) of the
 # genome with contigs >= 500 bp on this sampler's reads (PERF.md), the
@@ -172,9 +184,101 @@ def _max_abs_err(a, b) -> int:
     return max(abs(x - y) for x, y in zip(av, bv))
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of one fn() call: CUDA events around a replay of a CUDA
+    graph of `reps` calls, over reps (median of 5 replays).  The replay
+    holds no host work, so a launch of a few microseconds is timed
+    without its wrapper's host time.  Every call's outputs are kept alive
+    through the capture, so each call writes memory of its own, not a
+    block the graph's pool handed back (and L2 still held); the inputs
+    stay in L2 from one call to the next."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            outs.append(fn())
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph, outs
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _windows_with_bases(codes, k: int) -> int:
+    """Windows of codes [B, L] that hold at least one base (code < 4):
+    the ones the ntHash kernel does arithmetic for."""
+    import torch
+    real = (codes < 4).to(torch.int32)
+    P = torch.nn.functional.pad(real.cumsum(dim=1, dtype=torch.int32), (1, 0))
+    W = codes.shape[1] - k + 1
+    return int(((P[:, k:] - P[:, :W]) > 0).sum())
+
+
+def nthash_bound(codes, k: int, strands: bool) -> dict:
+    """Bytes (codes read once; canon, valid and, with strands, fwd and
+    rev written once) and operations (NTHASH_OPS_PER_WINDOW for each
+    window that holds a base) of one launch, and the bound they give."""
+    B, L = codes.shape
+    W = L - k + 1
+    nbytes = B * L + B * W * (8 + 1 + (16 if strands else 0))
+    windows = _windows_with_bases(codes, k)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = windows * NTHASH_OPS_PER_WINDOW / INT_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, windows_with_bases=windows,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def nthash_check(codes, k: int) -> tuple[int, bool]:
+    """The ntHash kernel against kmer_hashes_plain on codes, with and
+    without the strand outputs: (max abs err where valid, whether every
+    output also equals the plain one at invalid windows).  Fails unless
+    valid is equal and the error is 0."""
+    import torch
+    from abyss_tpu_torch.ops import kernels, nthash
+    canon, valid, _, _ = kernels.nthash(codes, k)
+    c2, v2, fwd, rev = kernels.nthash(codes, k, strands=True)
+    pf, pr, pc, pv = nthash.kmer_hashes_plain(codes, k)
+    torch.cuda.synchronize()
+    shape = list(codes.shape)
+    check(torch.equal(valid, pv), f"{shape} k={k}: valid differs from plain")
+    check(torch.equal(v2, pv), f"{shape} k={k}: valid (strands) differs")
+    err = max(_max_abs_err(canon[pv], pc[pv]), _max_abs_err(c2[pv], pc[pv]),
+              _max_abs_err(fwd[pv], pf[pv]), _max_abs_err(rev[pv], pr[pv]))
+    check(err == 0, f"{shape} k={k}: canon/fwd/rev differ from plain where "
+                    f"valid (max abs err {err})")
+    all_equal = bool(torch.equal(canon, pc) and torch.equal(c2, pc)
+                     and torch.equal(fwd, pf) and torch.equal(rev, pr))
+    return err, all_equal
+
+
+def _graph_reps(codes, k: int, strands: bool) -> int:
+    """Launches a timing graph holds: GRAPH_BYTES of outputs, 10-200."""
+    B, L = codes.shape
+    out = B * (L - k + 1) * (9 + (16 if strands else 0))
+    return max(10, min(200, GRAPH_BYTES // max(out, 1)))
+
+
 def phase_kernel(B: int = 4096, L: int = 512) -> tuple[dict, dict]:
-    """The ntHash kernel against kmer_hashes_plain on the card, at the
-    main path's batch shape, for k = 31 and k = 25."""
+    """The ntHash kernel against kmer_hashes_plain on the card, on a
+    synthetic [4096, 512] batch of reads of random lengths, for k = 31
+    and k = 25: `ms` by graph_ms, `flush_ms` by CUDA events around each
+    launch after a 128 MiB write that flushes L2 (the kernel's earlier
+    timing; it also counts any wait for the wrapper's host work)."""
     import torch
     from abyss_tpu_torch.ops import kernels, nthash
     dev = torch.device("cuda")
@@ -182,39 +286,125 @@ def phase_kernel(B: int = 4096, L: int = 512) -> tuple[dict, dict]:
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     res = {}
     for k in (31, 25):
-        W = L - k + 1
-        canon, valid, _, _ = kernels.nthash(codes, k)
-        c2, v2, fwd, rev = kernels.nthash(codes, k, strands=True)
-        pf, pr, pc, pv = nthash.kmer_hashes_plain(codes, k)
-        torch.cuda.synchronize()
-        check(torch.equal(valid, pv), f"k={k}: valid differs from plain")
-        check(torch.equal(v2, pv), f"k={k}: valid (strands) differs")
-        err = max(_max_abs_err(canon[pv], pc[pv]),
-                  _max_abs_err(c2[pv], pc[pv]),
-                  _max_abs_err(fwd[pv], pf[pv]),
-                  _max_abs_err(rev[pv], pr[pv]))
-        check(err == 0, f"k={k}: canon/fwd/rev differ from plain where "
-                        f"valid (max abs err {err})")
-        all_equal = bool(torch.equal(canon, pc) and torch.equal(fwd, pf)
-                         and torch.equal(rev, pr))
-        ms = median_ms(lambda: kernels.nthash(codes, k), 30,
-                       flush=lambda: flush_buf.fill_(1))
+        err, all_equal = nthash_check(codes, k)
+        flush_ms = median_ms(lambda: kernels.nthash(codes, k), 30,
+                             flush=lambda: flush_buf.fill_(1))
         plain_ms = median_ms(lambda: nthash.kmer_hashes_plain(codes, k), 10,
                              flush=lambda: flush_buf.fill_(1))
-        nbytes = B * L + B * W * (8 + 1)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = B * W * NTHASH_OPS_PER_WINDOW / INT_OPS_PER_S * 1e3
-        res[k] = dict(k=k, shape=[B, L], max_abs_err=err,
-                      equal_at_invalid_too=all_equal, ms=ms,
-                      plain_ms=plain_ms, bytes=nbytes,
-                      bound_ms=max(bytes_ms, ops_ms),
-                      bound_by="bytes" if bytes_ms >= ops_ms else
-                      "operations",
-                      gbytes_per_s=nbytes / (ms * 1e-3) / 1e9)
+        ms = graph_ms(lambda: kernels.nthash(codes, k),
+                      _graph_reps(codes, k, False))
+        res[k] = dict(name="synthetic", k=k, shape=[B, L], strands=False,
+                      max_abs_err=err, equal_at_invalid_too=all_equal, ms=ms,
+                      flush_ms=flush_ms, plain_ms=plain_ms,
+                      **nthash_bound(codes, k, False))
+        res[k]["gbytes_per_s"] = res[k]["bytes"] / (ms * 1e-3) / 1e9
     del flush_buf
     # the main path's shape is k = 31
     return dict(phase="kernel", kernel="nthash", results=list(res.values())
                 ), res[31]
+
+
+class NthashShapes:
+    """Records every ntHash launch of a run by (pass, B, L, k, strands),
+    and keeps the codes of the first launch of each key and of pass-1
+    batch CAPTURE_BATCH, for timing at the shapes the run launched.
+    Pass 1 is the time inside bloom_dbg.load_filter."""
+
+    def __init__(self):
+        self.hist: dict = {}
+        self.codes: dict = {}
+        self.pass1_batch = None
+        self._pass1 = False
+        self._calls1 = 0
+
+    def __enter__(self):
+        from abyss_tpu_torch.dbg import bloom_dbg
+        from abyss_tpu_torch.ops import kernels
+        self._nthash, self._load = kernels.nthash, bloom_dbg.load_filter
+
+        def nthash(codes, k, strands=False):
+            key = ("pass1" if self._pass1 else "pass2", *codes.shape, k,
+                   bool(strands))
+            self.hist[key] = self.hist.get(key, 0) + 1
+            if key not in self.codes:
+                self.codes[key] = codes.clone()
+            if self._pass1:
+                if self._calls1 == CAPTURE_BATCH:
+                    self.pass1_batch = codes.clone()
+                self._calls1 += 1
+            return self._nthash(codes, k, strands)
+
+        def load_filter(*a, **kw):
+            self._pass1 = True
+            try:
+                return self._load(*a, **kw)
+            finally:
+                self._pass1 = False
+
+        kernels.nthash, bloom_dbg.load_filter = nthash, load_filter
+        return self
+
+    def __exit__(self, *exc):
+        from abyss_tpu_torch.dbg import bloom_dbg
+        from abyss_tpu_torch.ops import kernels
+        kernels.nthash, bloom_dbg.load_filter = self._nthash, self._load
+
+
+def phase_nthash_shapes(rec: NthashShapes, synthetic: dict) -> tuple:
+    """The ntHash kernel at every shape the main run launched, each on
+    the codes of its first launch: bit for bit against its plain version,
+    graph_ms, bound, and launches x (ms - bound) summed over the run.
+    Returns the row and the kernels line's three shapes: the synthetic
+    batch, pass-1 batch CAPTURE_BATCH and the most frequent pass-2
+    shape."""
+    from abyss_tpu_torch.ops import kernels, nthash
+    check(rec.pass1_batch is not None, f"pass 1 launched ntHash fewer than "
+                                      f"{CAPTURE_BATCH + 1} times")
+    rows = []
+    for key, n in sorted(rec.hist.items(), key=lambda kv: -kv[1]):
+        pass_, B, L, k, strands = key
+        codes = rec.codes[key]
+        err, all_equal = nthash_check(codes, k)
+        rows.append(dict(
+            name=key[0], shape=[B, L], k=k, strands=strands, launches=n,
+            max_abs_err=err, equal_at_invalid_too=all_equal,
+            ms=graph_ms(lambda: kernels.nthash(codes, k, strands),
+                        _graph_reps(codes, k, strands)),
+            plain_ms=median_ms(lambda: nthash.kmer_hashes_plain(codes, k), 3),
+            **nthash_bound(codes, k, strands)))
+    gap = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+    codes, k = rec.pass1_batch, synthetic["k"]
+    err, all_equal = nthash_check(codes, k)
+    batch = dict(name=f"pass1 batch {CAPTURE_BATCH}", shape=list(codes.shape),
+                 k=k, strands=False, max_abs_err=err,
+                 equal_at_invalid_too=all_equal,
+                 ms=graph_ms(lambda: kernels.nthash(codes, k),
+                             _graph_reps(codes, k, False)),
+                 plain_ms=median_ms(lambda: nthash.kmer_hashes_plain(codes, k),
+                                    5),
+                 launches=sum(r["launches"] for r in rows
+                              if r["name"] == "pass1"),
+                 **nthash_bound(codes, k, False))
+    top = next(r for r in rows if r["name"] == "pass2")
+    same = [r["launches"] for r in rows
+            if r["shape"] == synthetic["shape"] and r["k"] == k]
+    synth = dict(synthetic, launches=sum(same))
+    keep = ("name", "shape", "k", "strands", "launches", "max_abs_err",
+            "equal_at_invalid_too", "ms", "flush_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    shapes = [{n: r[n] for n in keep if n in r} for r in (synth, batch, top)]
+    row = dict(phase="kernel", kernel="nthash_shapes",
+               launches=sum(r["launches"] for r in rows),
+               gap_ms=gap, histogram=rows, pass1_batch=batch)
+    # the same codes, for scripts/nthash_shapes_ab.py to time other
+    # checkouts' kernels on
+    import torch
+    os.makedirs(os.path.dirname(SHAPES_FILE), exist_ok=True)
+    torch.save(dict(
+        shapes=[dict(key=key, launches=n, codes=rec.codes[key].cpu())
+                for key, n in rec.hist.items()],
+        pass1_batch=rec.pass1_batch.cpu()), SHAPES_FILE)
+    return row, shapes, gap
 
 
 def _solid(wf) -> tuple:
@@ -569,8 +759,8 @@ def _check_contigs(row: dict) -> None:
 
 def phase_main(tmp: str) -> tuple:
     """The main path at full size; returns its row, (walk filter, read
-    paths, params) for the walk and look-ahead kernel checks, and the
-    genome."""
+    paths, params) for the walk and look-ahead kernel checks, the
+    genome, and its ntHash launches (NthashShapes)."""
     from abyss_tpu_torch import sim
     from abyss_tpu_torch.core import alphabet
     from abyss_tpu_torch.dbg.params import AssemblyParams
@@ -588,12 +778,13 @@ def phase_main(tmp: str) -> tuple:
         f"{sim_s:.1f}s")
     # the CLI defaults: batch 4096, max read length 512
     params = AssemblyParams(k=31)
-    run = _drive(paths, params, ("nthash", "walk", "branch"))
+    with NthashShapes() as shapes:
+        run = _drive(paths, params, ("nthash", "walk", "branch"))
     row = _hold_to_genome(run, genome, "main", params, n_pairs, read_len)
     row["simulate_s"] = sim_s
     emit(row)
     _check_contigs(row)
-    return row, (run["walk_filter"], paths, params), genome
+    return row, (run["walk_filter"], paths, params), genome, shapes
 
 
 def phase_bloom(paths, genome: str, main_row: dict) -> tuple:
@@ -761,7 +952,10 @@ def main() -> int:
         row, kern = phase_kernel()
         emit(row)
         emit(phase_parity(tmp))
-        main_row, (wf, paths, params), genome = phase_main(tmp)
+        main_row, (wf, paths, params), genome, launched = phase_main(tmp)
+        row, nthash_shapes, nthash_gap = phase_nthash_shapes(launched, kern)
+        emit(row)
+        del launched
         walk, walked = phase_walk(wf, paths, params)
         emit(walk)
         branch = phase_branch(*walked)
@@ -794,12 +988,18 @@ def main() -> int:
     fast_extend = "abyss_tpu/dbg/extend.py:164"
     branch_depths = "abyss_tpu/dbg/extend.py:243"
     walk_cu = "abyss_tpu_torch/csrc/walk.cu"
+    # ntHash also lists its flush timing (its earlier `ms`), its times at
+    # three shapes (phase_nthash_shapes) and launches x (ms - bound_ms)
+    # over every shape of the main run
+    kern.update(shapes=nthash_shapes, gap_ms_main_run=nthash_gap)
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=path["launches"][name],
         max_abs_err=rec["max_abs_err"], ms=rec["ms"],
         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=rec.get("library_ms"))
+        bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
+        **{n: rec[n] for n in ("flush_ms", "shapes", "gap_ms_main_run")
+           if n in rec})
         for name, source, replaces, path, rec in (
             ("nthash", "abyss_tpu_torch/csrc/nthash.cu",
              "abyss_tpu/ops/pallas_kernels.py:192", main_row, kern),

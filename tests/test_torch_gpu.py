@@ -65,6 +65,37 @@ def test_nthash_kernel_refuses_bad_input(cuda):
                        41)
 
 
+@pytest.mark.parametrize("layout", ["picked", "tile", "tile37"])
+@pytest.mark.parametrize("shape", list(host.NTHASH_SHAPES))
+def test_nthash_kernel_layouts(cuda, shape, layout):
+    """The host tests' layout cases on the card: packed and tiled blocks,
+    strips of padding, part padding and interior N codes."""
+    B, L, k = host.NTHASH_SHAPES[shape]
+    geometry = kernels.nthash_lib().geometry
+    codes = host.layout_codes(B, L, seed=B * L + k)
+    t = torch.from_numpy(codes).to(cuda)
+    lay = host.nthash_layouts(B, L, k, geometry,
+                              kernels.device_sms(t.device.index))[layout]
+    launched = kernels.launches["nthash"]
+    strands = layout != "tile37"
+    canon, valid, fwd, rev = kernels.nthash_launch(t, k, strands, lay)
+    assert kernels.launches["nthash"] == launched + 1
+    pf, pr, pc, pv = nthash.kmer_hashes_plain(t, k)
+    assert torch.equal(canon, pc) and torch.equal(valid, pv)
+    if strands:
+        assert torch.equal(fwd, pf) and torch.equal(rev, pr)
+
+
+def test_nthash_kernel_refuses_bad_layout(cuda):
+    """A layout the kernel cannot take (several rows a block that are
+    not whole rows) launches nothing and raises."""
+    t = torch.zeros((8, 100), dtype=torch.uint8, device=cuda)
+    launched = kernels.launches["nthash"]
+    with pytest.raises(RuntimeError):
+        kernels.nthash_launch(t, 31, False, (2, 35))
+    assert kernels.launches["nthash"] == launched
+
+
 def walk_filter(seqs, k, min_cov, bloom, cuda):
     """The sorted filter's walk table of seqs' k-mers, or (bloom) a
     counting Bloom filter of them small enough to have false positives;
@@ -227,6 +258,25 @@ def test_scatter_max_kernel_matches_plain(cuda, n, Q):
     plain = base.clone()
     tsm.scatter_max_u8_plain(plain[1:], idx, val)
     assert torch.equal(levels, plain)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("name", host.SCATTER_CASES)
+def test_scatter_max_kernel_cases(cuda, name, offset):
+    """The host tests' scatter cases on the card: words already set, one
+    word and one byte raced by many threads, 255s, all dropped, short
+    and ragged streams, counters at byte offsets 0, 1 and 3."""
+    counters, idx, val = host.scatter_case(name, seed=len(name) + offset)
+    n = counters.shape[0]
+    base = torch.from_numpy(np.concatenate([
+        np.full(offset, 7, np.uint8), counters,
+        np.full(3, 7, np.uint8)])).to(cuda)
+    idx, val = torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda)
+    got = base.clone()
+    tsm.scatter_max_u8(got[offset:offset + n], idx, val)
+    ref = base.clone()
+    tsm.scatter_max_u8_plain(ref[offset:offset + n], idx, val)
+    assert torch.equal(got, ref)
 
 
 def test_counting_filter_insert_on_card_matches_cpu(cuda):

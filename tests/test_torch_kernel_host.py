@@ -52,7 +52,8 @@ def build_harness():
                      for h in ("nthash.cuh", "walk.cuh", "scatter_max.cuh")])
     lib = ctypes.CDLL(so)
     lib.nthash_host.restype = None
-    lib.nthash_host.argtypes = [P_, I64, I64, ctypes.c_int, P_, P_, P_, P_]
+    lib.nthash_host.argtypes = [P_, I64, I64, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, P_, P_, P_, P_]
     lib.branch_host.restype = None
     lib.branch_host.argtypes = [P_, I64, ctypes.c_int, P_, P_, P_, I64,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -87,24 +88,117 @@ def reads(seed, B, L):
     return codes
 
 
-@pytest.mark.parametrize("k,L", [(5, 160), (25, 700), (31, 512), (96, 160),
-                                 (1, 3)])
-def test_nthash_body_matches_plain(harness, k, L):
-    """Rows longer than one tile (TILE = 512 windows) and shorter; k from
-    1 to 96."""
-    codes = reads(k + L, 5, L)
+def harness_nthash(harness, codes, k, layout, strands=True):
+    """(canon, valid, fwd, rev) of nthash_host on numpy codes in a layout
+    (rows, seg); fwd/rev None unless `strands`."""
+    B, L = codes.shape
     W = L - k + 1
-    canon = np.zeros((5, W), np.uint64)
-    valid = np.zeros((5, W), np.uint8)
-    fwd = np.zeros((5, W), np.uint64)
-    rev = np.zeros((5, W), np.uint64)
-    harness.nthash_host(ptr(codes), 5, L, k, ptr(canon), ptr(valid),
-                        ptr(fwd), ptr(rev))
+    canon = np.zeros((B, W), np.uint64)
+    valid = np.zeros((B, W), np.uint8)
+    fwd = np.zeros((B, W), np.uint64) if strands else None
+    rev = np.zeros((B, W), np.uint64) if strands else None
+    harness.nthash_host(ptr(codes), B, L, k, *layout, ptr(canon), ptr(valid),
+                        ptr(fwd) if strands else None,
+                        ptr(rev) if strands else None)
+    return canon, valid, fwd, rev
+
+
+def assert_nthash_plain(codes, k, canon, valid, fwd, rev):
+    """The kernel's outputs (numpy, fwd/rev may be None) equal
+    kmer_hashes_plain's everywhere, invalid windows too."""
     pf, pr, pc, pv = tnt.kmer_hashes_plain(torch.from_numpy(codes), k)
     np.testing.assert_array_equal(valid.astype(bool), pv.numpy())
     np.testing.assert_array_equal(canon, u64.to_numpy(pc))
-    np.testing.assert_array_equal(fwd, u64.to_numpy(pf))
-    np.testing.assert_array_equal(rev, u64.to_numpy(pr))
+    if fwd is not None:
+        np.testing.assert_array_equal(fwd, u64.to_numpy(pf))
+        np.testing.assert_array_equal(rev, u64.to_numpy(pr))
+
+
+@pytest.mark.parametrize("k,L", [(5, 160), (25, 700), (31, 512), (96, 160),
+                                 (1, 3)])
+def test_nthash_body_matches_plain(harness, k, L):
+    """Rows of one window to several hundred, packed or tiled as the
+    wrapper picks; k from 1 to 96."""
+    codes = reads(k + L, 5, L)
+    layout = kernels.nthash_layout(5, L, k, kernels.nthash_geometry(harness),
+                                   H100_SMS)
+    assert_nthash_plain(codes, k, *harness_nthash(harness, codes, k, layout))
+
+
+# (B, L, k) of the layout cases: hash_base's [N, k] rows (W = 1), rows
+# of a few windows, one padded sequence of 2^m bases
+# (kmer_hashes_padded, a row spread over several blocks), the main
+# path's padded reads, rows of two tiles (the second ragged), k past a
+# strip with W not a multiple of it, and a k whose bases take a block
+# past 48 KB of shared memory
+NTHASH_SHAPES = {"rows_k31": (70, 31, 31), "rows_k1": (9, 1, 1),
+                 "short_w10": (50, 40, 31), "b1_len64": (1, 64, 31),
+                 "b1_len2048": (1, 2048, 31), "b1_len4096": (1, 4096, 31),
+                 "main": (41, 512, 31),
+                 "two_tiles": (3, 5000, 25), "k96": (6, 300, 96),
+                 "k40_w18": (5, 57, 40), "k9000": (2, 9100, 9000)}
+
+
+def layout_codes(B, L, seed):
+    """uint8 [B, L] codes for the layout cases: random bases with 2% N
+    codes (4 and 9), and rows that are: 150 bases padded to L, all
+    padding, padding first, a run of 70 N codes inside, a random length
+    padded."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    codes[rng.random((B, L)) < 0.02] = rng.choice(np.array([4, 9], np.uint8))
+    special = [lambda r: r.__setitem__(slice(150, None), 4),
+               lambda r: r.__setitem__(slice(None), 4),
+               lambda r: r.__setitem__(slice(None, L // 3), 4),
+               lambda r: r.__setitem__(slice(L // 4, L // 4 + 70), 9)]
+    for row, fill in zip(codes, special):
+        fill(row)
+    for row in codes[len(special):]:
+        row[rng.integers(0, L + 1):] = 4
+    return codes
+
+
+# multiprocessors of the card the layout choice is tested for
+H100_SMS = 132
+
+
+def nthash_layouts(B, L, k, geometry, sms=H100_SMS):
+    """The wrapper's layout on a card of `sms` multiprocessors and two
+    tile layouts: tiles of TILE windows, and of 37 (a segment that is not
+    a multiple of a strip)."""
+    W = L - k + 1
+    threads, strip, _ = geometry
+    return {"picked": kernels.nthash_layout(B, L, k, geometry, sms),
+            "tile": (1, min(W, threads * strip)), "tile37": (1, min(W, 37))}
+
+
+@pytest.mark.parametrize("layout", ["picked", "tile", "tile37"])
+@pytest.mark.parametrize("shape", list(NTHASH_SHAPES))
+def test_nthash_body_layouts(harness, shape, layout):
+    """Every layout case in the wrapper's layout and in tile layouts, with
+    strips that are all padding, partly padding, or hold interior N
+    codes; the tile37 runs without fwd/rev, as the counting path asks."""
+    B, L, k = NTHASH_SHAPES[shape]
+    geometry = kernels.nthash_geometry(harness)
+    lay = nthash_layouts(B, L, k, geometry)[layout]
+    codes = layout_codes(B, L, seed=B * L + k)
+    out = harness_nthash(harness, codes, k, lay, strands=layout != "tile37")
+    assert_nthash_plain(codes, k, *out)
+
+
+@pytest.mark.parametrize("B,L,k,layout", [
+    (4096, 31, 31, (256, 1)), (4096, 512, 31, (8, 482)),
+    (4096, 40, 31, (204, 10)), (3, 512, 31, (3, 482)),
+    (1, 64, 31, (1, 34)), (1, 1024, 31, (1, 512)), (1, 2048, 31, (1, 512)),
+    (1, 16384, 31, (1, 512)), (1, 1 << 21, 31, (1, 4096)),
+    (8, 5000, 25, (1, 512)), (40, 5000, 25, (1, 1024)),
+    (132, 5000, 25, (1, 4096)), (8, 3000, 2900, (2, 101))])
+def test_nthash_layout_choice(B, L, k, layout):
+    """Short rows are packed several to a block; long rows are tiled, in
+    smaller tiles (down to a warp's 32 strips) while the grid has fewer
+    blocks than the card has multiprocessors."""
+    geom = (256, 16, 8192)
+    assert kernels.nthash_layout(B, L, k, geom, H100_SMS) == layout
 
 
 def walk_filter(seqs, k, min_cov=1, bloom=False):
@@ -412,6 +506,64 @@ def test_scatter_max_body_matches_plain(harness, n, Q, offset):
     np.testing.assert_array_equal(got, ref.numpy())
     assert (got[offset + S:] == base[offset + S:]).all()   # sink untouched
     assert (got[:offset] == base[:offset]).all()
+
+
+def scatter_case(name, seed):
+    """(counters, idx, val) numpy arrays of a scatter-max case, for a
+    counter array of n = 2^12 + 1 slots (the last the sink):
+      words_set    every word already non-zero (a swap must keep
+                   the other bytes);
+      one_word     every update to the 4 bytes of one word, values 0-255
+                   (on the card, threads race on its swap);
+      one_byte     every update to one byte, values 0-255;
+      val255       values 255 on words that hold other bytes;
+      all_dropped  every index negative or past the power-of-two size;
+      short        fewer updates than a block has threads;
+      ragged       a stream that is not a multiple of a block's threads."""
+    rng = np.random.default_rng(seed)
+    n = (1 << 12) + 1
+    Q = {"short": 100, "ragged": 3 * 2048 + 777}.get(name, 5000)
+    counters = rng.integers(0, 3, size=n).astype(np.uint8)
+    idx = rng.integers(0, n - 1, size=Q).astype(np.int64)
+    val = rng.integers(0, 256, size=Q).astype(np.uint8)
+    if name == "words_set":
+        counters = rng.integers(1, 100, size=n).astype(np.uint8)
+    elif name == "one_word":
+        idx = rng.integers(8, 12, size=Q).astype(np.int64)
+    elif name == "one_byte":
+        idx[:] = 13
+    elif name == "val255":
+        val[rng.random(Q) < 0.5] = 255
+        idx %= 64
+    elif name == "all_dropped":
+        idx = rng.integers(n - 1, n + 50, size=Q).astype(np.int64)
+        idx[::3] = -rng.integers(1, 5, size=len(idx[::3]))
+    return counters, idx, val
+
+
+SCATTER_CASES = ["words_set", "one_word", "one_byte", "val255",
+                 "all_dropped", "short", "ragged"]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("name", SCATTER_CASES)
+def test_scatter_max_body_cases(harness, name, offset):
+    """Each scatter case on a counter array at byte offset 0, 1 or 3 of
+    its word (a cascade's level rows start anywhere)."""
+    counters, idx, val = scatter_case(name, seed=len(name) + offset)
+    n = counters.shape[0]
+    S = tsm.pow2_size(n)
+    base = np.concatenate([np.full(offset, 7, np.uint8), counters,
+                           np.full(3, 7, np.uint8)])
+    got = base.copy()
+    harness.scatter_max_host(ptr(got[offset:]), S, ptr(idx), ptr(val),
+                             len(idx))
+    ref = torch.from_numpy(base.copy())
+    tsm.scatter_max_u8_plain(ref[offset:offset + n], torch.from_numpy(idx),
+                             torch.from_numpy(val))
+    np.testing.assert_array_equal(got, ref.numpy())
+    if name == "all_dropped":
+        np.testing.assert_array_equal(got, base)
 
 
 def test_scatter_max_wrapper_refuses_cpu_tensors():
