@@ -5,6 +5,8 @@ import importlib
 import sys
 
 TOOLS = {
+    "pe": ("abyss-pe pipeline driver (key=value args: name= k= in= "
+           "device=cuda|cpu ...)", "abyss_tpu_torch.pipeline.pe", "main"),
     "bloom-dbg": ("Bloom-filter de Bruijn graph assembler",
                   "abyss_tpu_torch.cli.tools", "bloom_dbg_main"),
     "bloom": ("Bloom filter utility (abyss-bloom: build/union/"

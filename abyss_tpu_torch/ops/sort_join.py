@@ -1,11 +1,13 @@
 """Bulk k-mer count lookup as a sort-merge join.
 
 Port of the parts of abyss_tpu/ops/sort_join.py that the filters
-call: the exact 64-bit join (`join_counts`), the packed 40-bit prefix
-probe (`pack_table`, `join_counts_packed`, `join_solid_packed`; the
-last answers by a search instead of a join, see there), and the dense
-u8 gather and scatter-max by merging (`dense_gather_u8`,
-`dense_scatter_max_u8`, the counting Bloom filter's update_mode="sort").
+and the mapper call: the exact 64-bit join (`join_counts`), the packed
+40-bit prefix probe (`pack_table`, `join_counts_packed`,
+`join_solid_packed`; the last answers by a search instead of a join,
+see there), the row join of the mapper's vote (`join_rows`, also a
+search), and the dense u8 gather and scatter-max by merging
+(`dense_gather_u8`, `dense_scatter_max_u8`, the counting Bloom
+filter's update_mode="sort").
 
   1. concatenate table words and query words, so that a table row sorts
      before the equal query keys;
@@ -161,6 +163,27 @@ def join_solid_packed(packed_table: torch.Tensor, queries: torch.Tensor,
     idx = torch.clamp(u64.usearchsorted(prefixes, q),
                       max=prefixes.shape[0] - 1)
     return prefixes[idx] == q
+
+
+def join_rows(table_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Row index in the sorted `table_keys` of each query key, -1 when
+    absent: the mapper's seed lookup.
+
+    table_keys: int64[M] sorted in unsigned order (u64), duplicates
+    allowed; queries: int64[N] in any order.  Returns int32[N] aligned
+    with `queries`.  Where a key occupies several rows the answer is the
+    last of them, the row the JAX package's sort-merge join returns (its
+    forward and backward running maxima propagate the largest row of the
+    equal-key run).  Here an unsigned right-side search finds it."""
+    M = table_keys.shape[0]
+    if M == 0:
+        return torch.full(queries.shape, -1, dtype=torch.int32,
+                          device=queries.device)
+    pos = torch.searchsorted(u64.flip(table_keys).contiguous(),
+                             u64.flip(queries).contiguous(), right=True) - 1
+    row = pos.clamp(min=0)
+    hit = (pos >= 0) & (table_keys[row] == queries)
+    return torch.where(hit, row, -1).to(torch.int32)
 
 
 # Dense-array gather / scatter-max by sorting: the counting Bloom

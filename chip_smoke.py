@@ -40,11 +40,31 @@ Phases, each printing one JSON line:
   tool    `bloom build -t counting -k 31 -b 1G` (the abyss-bloom CLI)
           on the same reads, with its launch counts, and its counters
           byte-identical to the bloom phase's pass-1 filter.
+  pe_parity  the port's whole `pe` pipeline (stages 1 to 8 and stats,
+          its own defaults at k=31) on the GPU and on the CPU, on the
+          parity phase's reads: every artifact byte-identical.
+  pe      `pe.run` on the card with the main phase's reads and pe's own
+          defaults (batch 16384, max read length 256, 64 MiB, kc=2) at
+          k=31, launch counts reset just before and read just after:
+          each stage's span and those of RResolver, the mapper's index
+          and vote and the MLE scan; the groups the scan took on the
+          card (64 or more); the first vote and every device MLE call
+          held against the CPU; sha256 of name-3.fa, name-6.fa and
+          name-8.fa, the count, N50 and sum of unitigs, contigs and
+          scaffolds, peak device memory, the ntHash launches by stage and
+          shape; every N-free block of 500 bp or more of the scaffolds
+          held to an ungapped placement on the genome (substitutions
+          only, few in any 100 bases: PathConsensus's tied columns),
+          scaffold N50 >= unitig N50, scaffolds summing to 0.9 of the
+          genome; samtobreak's breakpoints of the
+          scaffolds of 200 bp or more (not gated).  Then the ntHash
+          kernel at every shape the pe run launched, as after main.
 
 Then one `kernels` JSON line (each kernel's launches on the path that
-runs it, error against its plain version, times and bound; for ntHash
-also its times at three shapes and launches x (ms - bound_ms) summed
-over every shape of the main run), and as the last line
+runs it, and on the pe path for the kernels pe runs, error against its
+plain version, times and bound; for ntHash also its times at three
+shapes and launches x (ms - bound_ms) summed over every shape of the
+main run and of the pe run), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 the last line.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero at once.
@@ -305,26 +325,46 @@ def phase_kernel(B: int = 4096, L: int = 512) -> tuple[dict, dict]:
 
 
 class NthashShapes:
-    """Records every ntHash launch of a run by (pass, B, L, k, strands),
+    """Records every ntHash launch of a run by (stage, B, L, k, strands),
     and keeps the codes of the first launch of each key and of pass-1
     batch CAPTURE_BATCH, for timing at the shapes the run launched.
-    Pass 1 is the time inside bloom_dbg.load_filter."""
+    Pass 1 is the time inside bloom_dbg.load_filter; `stages` names
+    further functions, (module, function name, stage), whose launches
+    take that stage's name; the rest are "pass2"."""
 
-    def __init__(self):
+    def __init__(self, stages=()):
         self.hist: dict = {}
         self.codes: dict = {}
         self.pass1_batch = None
         self._pass1 = False
         self._calls1 = 0
+        self._stages = stages
+        self._stage = None
+        self._undo = []
+
+    def _tag(self, mod, name: str, stage: str) -> None:
+        fn = getattr(mod, name)
+
+        def tagged(*a, **kw):
+            outer, self._stage = self._stage, stage
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._stage = outer
+
+        setattr(mod, name, tagged)
+        self._undo.append((mod, name, fn))
 
     def __enter__(self):
         from abyss_tpu_torch.dbg import bloom_dbg
         from abyss_tpu_torch.ops import kernels
         self._nthash, self._load = kernels.nthash, bloom_dbg.load_filter
+        for stage in self._stages:
+            self._tag(*stage)
 
         def nthash(codes, k, strands=False):
-            key = ("pass1" if self._pass1 else "pass2", *codes.shape, k,
-                   bool(strands))
+            stage = "pass1" if self._pass1 else (self._stage or "pass2")
+            key = (stage, *codes.shape, k, bool(strands))
             self.hist[key] = self.hist.get(key, 0) + 1
             if key not in self.codes:
                 self.codes[key] = codes.clone()
@@ -348,31 +388,40 @@ class NthashShapes:
         from abyss_tpu_torch.dbg import bloom_dbg
         from abyss_tpu_torch.ops import kernels
         kernels.nthash, bloom_dbg.load_filter = self._nthash, self._load
+        for mod, name, fn in reversed(self._undo):
+            setattr(mod, name, fn)
+        self._undo.clear()
 
 
-def phase_nthash_shapes(rec: NthashShapes, synthetic: dict) -> tuple:
-    """The ntHash kernel at every shape the main run launched, each on
-    the codes of its first launch: bit for bit against its plain version,
-    graph_ms, bound, and launches x (ms - bound) summed over the run.
-    Returns the row and the kernels line's three shapes: the synthetic
-    batch, pass-1 batch CAPTURE_BATCH and the most frequent pass-2
-    shape."""
+def nthash_shape_rows(rec: NthashShapes) -> tuple[list, float]:
+    """The ntHash kernel at every shape a run launched, each on the codes
+    of its first launch: bit for bit against its plain version, graph_ms,
+    bound; and launches x (ms - bound) summed over the run."""
     from abyss_tpu_torch.ops import kernels, nthash
-    check(rec.pass1_batch is not None, f"pass 1 launched ntHash fewer than "
-                                      f"{CAPTURE_BATCH + 1} times")
     rows = []
     for key, n in sorted(rec.hist.items(), key=lambda kv: -kv[1]):
-        pass_, B, L, k, strands = key
+        stage, B, L, k, strands = key
         codes = rec.codes[key]
         err, all_equal = nthash_check(codes, k)
         rows.append(dict(
-            name=key[0], shape=[B, L], k=k, strands=strands, launches=n,
+            name=stage, shape=[B, L], k=k, strands=strands, launches=n,
             max_abs_err=err, equal_at_invalid_too=all_equal,
             ms=graph_ms(lambda: kernels.nthash(codes, k, strands),
                         _graph_reps(codes, k, strands)),
             plain_ms=median_ms(lambda: nthash.kmer_hashes_plain(codes, k), 3),
             **nthash_bound(codes, k, strands)))
-    gap = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+    return rows, sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+
+
+def phase_nthash_shapes(rec: NthashShapes, synthetic: dict) -> tuple:
+    """The ntHash kernel at every shape the main run launched
+    (nthash_shape_rows), and pass-1 batch CAPTURE_BATCH.  Returns the
+    row and the kernels line's three shapes: the synthetic batch, pass-1
+    batch CAPTURE_BATCH and the most frequent pass-2 shape."""
+    from abyss_tpu_torch.ops import kernels, nthash
+    check(rec.pass1_batch is not None, f"pass 1 launched ntHash fewer than "
+                                      f"{CAPTURE_BATCH + 1} times")
+    rows, gap = nthash_shape_rows(rec)
     codes, k = rec.pass1_batch, synthetic["k"]
     err, all_equal = nthash_check(codes, k)
     batch = dict(name=f"pass1 batch {CAPTURE_BATCH}", shape=list(codes.shape),
@@ -549,13 +598,15 @@ class Spans:
 
     def __init__(self):
         self.seconds: dict = {}
+        self.gross: dict = {}         # the same spans with their insides
         self.calls: dict = {}
         self._open: list = []
         self._undo: list = []
 
-    def wrap(self, mod, name: str) -> None:
+    def wrap(self, mod, name: str, label: str | None = None) -> None:
         import torch
         fn = getattr(mod, name)
+        attr, name = name, label or name
 
         def span(*a, **kw):
             t0 = time.perf_counter()
@@ -567,12 +618,13 @@ class Spans:
                 dt = time.perf_counter() - t0
                 inner = self._open.pop()
                 self.seconds[name] = self.seconds.get(name, 0.0) + dt - inner
+                self.gross[name] = self.gross.get(name, 0.0) + dt
                 self.calls[name] = self.calls.get(name, 0) + 1
                 if self._open:
                     self._open[-1] += dt
 
-        setattr(mod, name, span)
-        self._undo.append((mod, name, fn))
+        setattr(mod, attr, span)
+        self._undo.append((mod, attr, fn))
 
     def restore(self) -> None:
         for mod, name, fn in reversed(self._undo):
@@ -929,6 +981,313 @@ def phase_bloom_tool(tmp: str, paths, cbf) -> dict:
                 identical_to_bloom_pass1=identical,
                 info=info.getvalue().splitlines(), launches=launches)
 
+# the stage functions of pe.run, whose spans are its [wall] lines
+PE_STAGES = ("stage_unitigs_1", "stage_graph_2_3", "stage_dist_5",
+             "stage_contigs_6", "stage_scaffolds_8", "stage_stats")
+# the MLE scan runs on the card only for 64 groups or more
+MIN_MLE_DEVICE_GROUPS = 64
+# Scaffolds against the genome.  PathConsensus (stages 5 and 7) writes
+# the column majority of its candidate paths; where two candidates tie,
+# the JAX package (and so the port, byte for byte) takes the smaller
+# base code, which is the read error's base about half the time: on the
+# 200 kbp reads 9 of its 20 consensus contigs differ from the genome in
+# one base (PERF.md).  So an N-free block is held to an ungapped
+# placement on the genome: substitutions only, at most
+# MAX_SUBS_PER_WINDOW in any SUBS_WINDOW bases.  Consensus errors come
+# one per bubble (at most 3 within 100 bases in the 4.6 Mbp run); an
+# insertion, a deletion or a misjoin leaves about 3 of every 4 bases
+# after it differing from any single placement.
+SUBS_WINDOW = 100
+MAX_SUBS_PER_WINDOW = 10
+# scaffolds cover at least this share of the genome, as the JAX
+# package's own pipeline test asks of its genome
+MIN_SCAFFOLD_SUM = 0.9
+
+
+def _pe_params(name: str, paths, outdir: str, device: str):
+    """`pe`'s own defaults (batch_size 16384, max_read_len 256,
+    bloom_bytes 64 MiB, kc 2) at k = 31."""
+    from abyss_tpu_torch.pipeline import pe
+    return pe.PipelineParams(name=name, k=31, in_files=list(paths),
+                             outdir=outdir, verbose=0, device=device)
+
+
+def ungapped_mismatches(block: str, strands, anchor: int = 32,
+                        tries: int = 16) -> list | None:
+    """Offsets where `block` differs from the genome at an ungapped
+    placement with no more than MAX_SUBS_PER_WINDOW differing bases in
+    any SUBS_WINDOW consecutive ones, or None when there is none.
+    Placements are anchored by exact `anchor`-mers of the block at up to
+    `tries` offsets, on each strand (strands: (sequence, uint8 codes) of
+    the genome and of its reverse complement); the first that passes is
+    taken."""
+    import numpy as np
+    from abyss_tpu_torch.core import alphabet
+    codes = alphabet.encode(block)
+    n = len(block)
+    for off in range(0, n - anchor + 1, max(1, (n - anchor) // tries)):
+        for seq, seq_codes in strands:
+            pos = seq.find(block[off:off + anchor])
+            seen = 0
+            while pos >= 0 and seen < 16:
+                start = pos - off
+                if 0 <= start <= len(seq) - n:
+                    diff = np.nonzero(codes != seq_codes[start:start + n])[0]
+                    ends = np.searchsorted(diff, diff + SUBS_WINDOW)
+                    if not len(diff) or int((ends - np.arange(len(diff)))
+                                            .max()) <= MAX_SUBS_PER_WINDOW:
+                        return diff.tolist()
+                pos = seq.find(block[off:off + anchor], pos + 1)
+                seen += 1
+    return None
+
+
+def _fa_lengths(path: str) -> list:
+    from abyss_tpu_torch.io import fastx
+    return [len(r.seq) for r in fastx.read_fastx(path)]
+
+
+class PeCapture:
+    """Wraps the mapper's vote and the MLE scan during a pe run: counts
+    the groups the scan took on the card, and keeps the first vote's
+    inputs and outputs and every estimate_distances_device call's
+    arguments and answer, to hold them against the CPU afterwards."""
+
+    def __init__(self):
+        self.mle_groups = 0
+        self.mle_calls = []
+        self.vote = None
+        self._undo = []
+
+    def _wrap(self, mod, name, fn):
+        self._undo.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def __enter__(self):
+        from abyss_tpu_torch.align import distance_est, mapper
+        scan, est, vote = (distance_est._mle_scan,
+                           distance_est.estimate_distances_device,
+                           mapper._vote_kernel)
+
+        def counting_scan(tab, filter_size, T, s, *a):
+            self.mle_groups += s.shape[0]
+            return scan(tab, filter_size, T, s, *a)
+
+        def recording_est(groups, pmf, first, last, **kw):
+            out = est(groups, pmf, first, last, **kw)
+            self.mle_calls.append((groups, pmf, first, last, kw, out))
+            return out
+
+        def recording_vote(index, codes, k):
+            out = vote(index, codes, k)
+            if self.vote is None:
+                self.vote = (index, codes.clone(), k, out)
+            return out
+
+        self._wrap(distance_est, "_mle_scan", counting_scan)
+        self._wrap(distance_est, "estimate_distances_device", recording_est)
+        self._wrap(mapper, "_vote_kernel", recording_vote)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._undo):
+            setattr(mod, name, fn)
+        self._undo.clear()
+
+    def hold_to_cpu(self) -> dict:
+        """The first vote and every device MLE call of the run, again on
+        the CPU: outputs must be equal (integers, no tolerance)."""
+        import torch
+        from abyss_tpu_torch.align import distance_est, mapper
+        check(self.vote is not None, "pe: the mapper's vote never ran")
+        index, codes, k, out = self.vote
+        cpu_index = mapper.KmerIndex(
+            k=index.k, **{n: getattr(index, n).cpu() for n in (
+                "hashes", "contig", "pos", "is_fwd", "first_row")},
+            names=index.names, lengths=index.lengths)
+        t0 = time.perf_counter()
+        cpu = mapper._vote_kernel(cpu_index, codes.cpu(), k)
+        vote_cpu_s = time.perf_counter() - t0
+        vote_equal = all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu))
+        check(vote_equal, "pe: the vote on the card differs from the CPU's")
+        t0 = time.perf_counter()
+        mle_equal = all(
+            distance_est.estimate_distances_device(
+                groups, pmf, first, last, **dict(kw, device="cpu")) == got
+            for groups, pmf, first, last, kw, got in self.mle_calls)
+        check(mle_equal, "pe: the MLE distances on the card differ from "
+                         "the CPU's")
+        return dict(vote_batch=list(codes.shape), vote_equal=vote_equal,
+                    vote_cpu_s=vote_cpu_s,
+                    mle_cpu_s=time.perf_counter() - t0,
+                    mle_device_calls=len(self.mle_calls),
+                    mle_groups_compared=sum(len(c[0]) for c in self.mle_calls),
+                    mle_equal=mle_equal)
+
+
+def phase_pe(tmp: str, paths, genome: str) -> tuple:
+    """`pe.run` on the card with the main phase's reads and pe's own
+    defaults at k = 31: stages 1 to 8 and stats, launch counts set to 0
+    just before and read just after, each stage's span (and the vote's,
+    the MLE scan's, RResolver's and the index builds'), every ntHash
+    launch by stage and shape; then the vote and the MLE held against
+    the CPU, and the scaffolds against the genome.  Returns its row and
+    the ntHash recorder."""
+    import torch
+    from abyss_tpu_torch.align import distance_est, mapper
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.core.histogram import contiguity_stats
+    from abyss_tpu_torch.graph import rresolver
+    from abyss_tpu_torch.io import fastx
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.pipeline import pe
+    from abyss_tpu_torch.stats import samtobreak
+    out = os.path.join(tmp, "pe")
+    params = _pe_params("pe", paths, out, "cuda")
+    spans = Spans()
+    for name in PE_STAGES:
+        spans.wrap(pe, name)
+    for mod, name, label in (
+            (rresolver, "build_rmer_filter", None),
+            (rresolver, "resolve_repeats", None),
+            (mapper.KmerAligner, "__init__", "mapper_index"),
+            (mapper, "_vote_kernel", None),
+            (distance_est, "_mle_scan", None),
+            (distance_est, "estimate_distances", None)):
+        spans.wrap(mod, name, label)
+    stages = ((rresolver, "build_rmer_filter", "rmer_reads"),
+              (rresolver, "resolve_repeats", "rmer_windows"),
+              (mapper.KmerAligner, "__init__", "mapper_index"),
+              (mapper, "_vote_kernel", "mapper_reads"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with PeCapture() as cap, NthashShapes(stages) as shapes:
+            pe.run(params)
+    finally:
+        launches = dict(kernels.launches)
+        spans.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("nthash", "walk", "branch"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  "pe path")
+    check(cap.mle_groups >= MIN_MLE_DEVICE_GROUPS,
+          f"pe: the MLE scan took {cap.mle_groups} groups on the card, "
+          f"fewer than {MIN_MLE_DEVICE_GROUPS}")
+    held = cap.hold_to_cpu()
+
+    def art(suffix):
+        return params.path(suffix)
+
+    stats = {}
+    for suffix, label in (("3.fa", "unitigs"), ("6.fa", "contigs"),
+                          ("8.fa", "scaffolds")):
+        lengths = _fa_lengths(art(suffix))
+        st = contiguity_stats(lengths, min_size=500, name=label)
+        stats[label] = dict(n=st["n"], n_500=st["n:500"], N50=st["N50"],
+                            sum_500=st["sum"], sum=sum(lengths),
+                            max=st["max"])
+    sha = {}
+    for suffix in ("3.fa", "6.fa", "8.fa"):
+        with open(art(suffix), "rb") as f:
+            sha[f"name-{suffix}"] = hashlib.sha256(f.read()).hexdigest()
+    scaffolds = [(r.id, r.seq) for r in fastx.read_fastx(art("8.fa"))]
+    rc = alphabet.revcomp(genome)
+    blocks = [b for _, s in scaffolds for b in s.split("N") if len(b) >= 500]
+    strict = sum(1 for b in blocks if b not in genome and b not in rc)
+    strands = ((genome, alphabet.encode(genome)), (rc, alphabet.encode(rc)))
+    placed = [ungapped_mismatches(b, strands) for b in blocks]
+    unplaced = sum(p is None for p in placed)
+    subs = sum(len(p) for p in placed if p)
+    t1 = time.perf_counter()
+    brk = samtobreak.contig_breakpoints(
+        genome, [(n, s) for n, s in scaffolds if len(s) >= 200],
+        device="cuda")
+    brk_s = time.perf_counter() - t1
+    genome_bp = len(genome)
+    row = dict(phase="pe", genome_bp=genome_bp,
+        reads=[os.path.basename(p) for p in paths], k=params.k,
+        batch_size=params.batch_size, max_read_len=params.max_read_len,
+        bloom_bytes=params.bloom_bytes, kc=params.kc, wall_s=wall,
+        stage_s={n: spans.gross.get(n, 0.0) for n in PE_STAGES},
+        spans_s={n: spans.gross[n] for n in spans.gross
+                 if n not in PE_STAGES},
+        calls={n: spans.calls[n] for n in spans.calls if n not in PE_STAGES},
+        mle_groups_device=cap.mle_groups, **held,
+        sha256=sha, stats=stats, n_scaffolds_with_gap=sum(
+            1 for _, s in scaffolds if "N" in s),
+        blocks_500=len(blocks), not_substring_500=strict,
+        blocks_500_unplaced=unplaced, substitutions_500=subs,
+        block_bases_500=sum(len(b) for b in blocks),
+        breakpoints_200=brk.breakpoints,
+        breakpoint_contigs_200=brk.contigs,
+        aligned_fraction_200=brk.aligned_fraction, samtobreak_s=brk_s,
+        peak_mem_bytes=peak, launches=launches,
+        nthash_launches=[dict(stage=key[0], shape=list(key[1:3]), k=key[3],
+                              strands=key[4], launches=n)
+                         for key, n in sorted(shapes.hist.items())])
+    emit(row)
+    check(unplaced == 0,
+          f"pe: {unplaced} N-free blocks >= 500 bp of the scaffolds have no "
+          f"ungapped placement on the genome with at most "
+          f"{MAX_SUBS_PER_WINDOW} substitutions in {SUBS_WINDOW} bases")
+    check(stats["scaffolds"]["N50"] >= stats["unitigs"]["N50"],
+          "pe: scaffold N50 below unitig N50")
+    check(stats["scaffolds"]["sum"] >= MIN_SCAFFOLD_SUM * genome_bp,
+          f"pe: scaffolds sum to {stats['scaffolds']['sum']} bp, below "
+          f"{MIN_SCAFFOLD_SUM} of the genome")
+    return row, shapes
+
+
+def phase_pe_shapes(rec: NthashShapes) -> dict:
+    """The ntHash kernel at every shape the pe run launched, as
+    phase_nthash_shapes does for the main run."""
+    rows, gap = nthash_shape_rows(rec)
+    return dict(phase="kernel", kernel="nthash_pe_shapes",
+                launches=sum(r["launches"] for r in rows), gap_ms=gap,
+                histogram=rows)
+
+
+def _tree_bytes(root: str) -> dict:
+    """{relative path: bytes, or "-> target" for a link} of a directory."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name)
+        if os.path.islink(path):
+            out[name] = "-> " + os.readlink(path)
+        else:
+            with open(path, "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def phase_pe_parity(tmp: str) -> dict:
+    """`pe.run` on the card and on the CPU, on the parity phase's reads:
+    every artifact (FASTA, graphs, paths, histograms, distances, stats,
+    links) byte-identical."""
+    paths = [os.path.join(tmp, "p1.fq"), os.path.join(tmp, "p2.fq")]
+    from abyss_tpu_torch.pipeline import pe
+    times = {}
+    trees = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"pe_parity_{device}")
+        t0 = time.perf_counter()
+        pe.run(_pe_params("par", paths, out, device))
+        times[device] = time.perf_counter() - t0
+        trees[device] = _tree_bytes(out)
+    gpu, cpu = trees["cuda"], trees["cpu"]
+    differ = sorted(n for n in set(gpu) | set(cpu) if gpu.get(n) != cpu.get(n))
+    check(not differ, f"pe parity: GPU and CPU artifacts differ: {differ}")
+    check(len(gpu) >= 30, f"pe parity: only {len(gpu)} artifacts")
+    with open(os.path.join(tmp, "pe_parity_cuda", "par-8.fa")) as f:
+        scaffolds = f.read().count(">")
+    return dict(phase="pe_parity", artifacts=len(gpu), identical=True,
+                scaffolds=scaffolds, gpu_s=times["cuda"], cpu_s=times["cpu"])
+
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "abyss_tpu_torch")):
@@ -974,6 +1333,12 @@ def main() -> int:
         del walked
         emit(phase_bloom_tool(tmp, paths, cbf))
         del cbf
+        torch.cuda.empty_cache()
+        emit(phase_pe_parity(tmp))
+        pe_row, pe_recorded = phase_pe(tmp, paths, genome)
+        pe_shapes = phase_pe_shapes(pe_recorded)
+        emit(pe_shapes)
+        del pe_recorded
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
@@ -991,15 +1356,18 @@ def main() -> int:
     # ntHash also lists its flush timing (its earlier `ms`), its times at
     # three shapes (phase_nthash_shapes) and launches x (ms - bound_ms)
     # over every shape of the main run
-    kern.update(shapes=nthash_shapes, gap_ms_main_run=nthash_gap)
+    kern.update(shapes=nthash_shapes, gap_ms_main_run=nthash_gap,
+                gap_ms_pe_run=pe_shapes["gap_ms"])
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=path["launches"][name],
         max_abs_err=rec["max_abs_err"], ms=rec["ms"],
         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
         bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
-        **{n: rec[n] for n in ("flush_ms", "shapes", "gap_ms_main_run")
-           if n in rec})
+        **{n: rec[n] for n in ("flush_ms", "shapes", "gap_ms_main_run",
+                               "gap_ms_pe_run") if n in rec},
+        **({"launches_pe": pe_row["launches"][name]}
+           if name in ("nthash", "walk", "branch") else {}))
         for name, source, replaces, path, rec in (
             ("nthash", "abyss_tpu_torch/csrc/nthash.cu",
              "abyss_tpu/ops/pallas_kernels.py:192", main_row, kern),

@@ -294,3 +294,143 @@ def test_counting_filter_insert_on_card_matches_cpu(cuda):
         f.update_mode = mode
         f.insert(canon.to(cuda), mask.to(cuda)).insert(canon[:50000].to(cuda))
         assert torch.equal(f.counters.cpu(), ref.counters), mode
+
+
+# -------------------------------------------------- the pe pipeline's stages
+
+@pytest.mark.parametrize("layout", ["picked", "tile", "tile37"])
+@pytest.mark.parametrize("shape", list(host.PE_SHAPES) + ["reads160_full"])
+def test_nthash_kernel_pe_shapes(cuda, shape, layout):
+    """The pe pipeline's new ntHash shapes on the card (the mapper's
+    index chunk and read batches, RResolver's reads and windows at
+    r = 91; reads160_full at the card's 16384 rows), bit for bit against
+    the plain version."""
+    full = shape == "reads160_full"
+    name = "reads160" if full else shape
+    codes = host.pe_codes(name, seed=7)
+    if full:
+        codes = np.tile(codes, (-(-16384 // codes.shape[0]), 1))[:16384]
+    B, L = codes.shape
+    k = host.PE_SHAPES[name][2]
+    t = torch.from_numpy(np.ascontiguousarray(codes)).to(cuda)
+    lay = host.nthash_layouts(B, L, k, kernels.nthash_lib().geometry,
+                              kernels.device_sms(t.device.index))[layout]
+    strands = layout != "tile37"
+    canon, valid, fwd, rev = kernels.nthash_launch(t, k, strands, lay)
+    pf, pr, pc, pv = nthash.kmer_hashes_plain(t, k)
+    assert torch.equal(canon, pc) and torch.equal(valid, pv)
+    if strands:
+        assert torch.equal(fwd, pf) and torch.equal(rev, pr)
+
+
+def _contigs(seed, n=12):
+    """Random contigs of 300-4000 bases, one repeating a stretch of the
+    first (tied votes)."""
+    rng = np.random.default_rng(seed)
+    cs = [(str(i), alphabet.decode(rng.integers(0, 4, int(m)).astype(
+        np.uint8))) for i, m in enumerate(rng.integers(300, 4000, n))]
+    cs.append(("rep", cs[0][1][50:700] + cs[1][1][:200]))
+    return cs
+
+
+def _reads(contigs, B, L, seed):
+    """[B, L] codes of 150-base reads from the contigs, either strand, 1%
+    substitutions, a share unmapped or all padding."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((B, L), 4, np.uint8)
+    for i in range(B):
+        if rng.random() < 0.05:
+            continue
+        s = alphabet.encode(contigs[rng.integers(len(contigs))][1])
+        st = int(rng.integers(0, max(len(s) - 150, 1)))
+        r = s[st:st + 150].copy()
+        if rng.random() < 0.05:
+            r = rng.integers(0, 4, len(r)).astype(np.uint8)
+        err = rng.random(len(r)) < 0.01
+        r[err] = (r[err] + 1) % 4
+        if rng.random() < 0.5:
+            r = alphabet.revcomp_codes(r)
+        codes[i, :len(r)] = r
+    return codes
+
+
+def test_vote_on_card_matches_cpu(cuda):
+    """The mapper's vote (index and read-batch ntHash launches, the row
+    join, the key sort and run-length argmaxes) on the card gives the
+    CPU's outputs."""
+    from abyss_tpu_torch.align import mapper
+    contigs = _contigs(3)
+    codes = mapper._trim_pad_columns(_reads(contigs, 2048, 256, 4), 32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ix = mapper.KmerIndex.build(contigs, 32, dev)
+        launched = kernels.launches["nthash"]
+        got = mapper._vote_kernel(ix, torch.from_numpy(codes).to(dev), 32)
+        if dev.type == "cuda":
+            assert kernels.launches["nthash"] == launched + 1
+        out.append([t.cpu() for t in got])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert (out[1][1] >= 2).float().mean() > 0.8
+
+
+def test_mle_on_card_matches_cpu(cuda):
+    """The batched MLE scan (float64) on the card gives the CPU's
+    distances and pair counts on 200 groups in several (T, n) buckets."""
+    from abyss_tpu_torch.align import distance_est as de
+    from abyss_tpu_torch.core.histogram import Histogram
+    rng = np.random.default_rng(42)
+    frags = [int(x) for x in rng.normal(420, 45, 4000).astype(int) if x > 0]
+    pmf = de.PMF.from_histogram(Histogram.of(frags))
+    first, last = -(len(pmf.probs) - 1), len(pmf.probs) - 1
+    groups = []
+    for g in range(200):
+        n = int(rng.integers(10, 400))
+        spans = rng.normal(420, 45, n).astype(int) - int(
+            rng.integers(-80, 400))
+        groups.append((("u%d" % g, 0, "v%d" % g, 0), [int(s) for s in spans],
+                       int(rng.integers(300, 3000)),
+                       int(rng.integers(300, 3000))))
+    gpu = de.estimate_distances_device(groups, pmf, first, last, device=cuda)
+    cpu = de.estimate_distances_device(groups, pmf, first, last, device="cpu")
+    assert gpu == cpu
+    for key, samples, l0, l1 in groups[:20]:
+        assert gpu[key] == de.maximum_likelihood_estimate(
+            samples, pmf, l0, l1, first, last)
+
+
+@pytest.mark.parametrize("LA,LB", [(40, 37), (300, 280)])
+def test_nw_batch_on_card_matches_cpu(cuda, LA, LB):
+    from abyss_tpu_torch.align import nw
+    rng = np.random.default_rng(LA)
+    a = rng.integers(0, 4, (64, LA), dtype=np.uint8)
+    b = rng.integers(0, 4, (64, LB), dtype=np.uint8)
+    for i in range(64):      # BAD padding after a random length
+        a[i, rng.integers(0, LA + 1):] = alphabet.BAD
+        b[i, rng.integers(0, LB + 1):] = alphabet.BAD
+    b[:32, :LA // 2] = a[:32, :LA // 2]
+    got = nw.nw_batch(torch.from_numpy(a).to(cuda),
+                      torch.from_numpy(b).to(cuda))
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), nw.nw_batch(torch.from_numpy(a),
+                                              torch.from_numpy(b)))
+
+
+def test_rmer_filter_on_card_matches_cpu(cuda):
+    """RResolver's r-mer filter (ntHash at r = 91 on read batches, the
+    bit filter's inserts) on the card holds the CPU's bits, and its
+    window probe gives the CPU's answers."""
+    from abyss_tpu_torch.graph import rresolver
+    contigs = _contigs(5)
+    batches = [_reads(contigs, 1024, 256, s) for s in (6, 7)]
+    gpu = rresolver.build_rmer_filter(batches, r=91, size=1 << 22,
+                                      device=cuda)
+    cpu = rresolver.build_rmer_filter(batches, r=91, size=1 << 22,
+                                      device="cpu")
+    assert gpu.bits.is_cuda and torch.equal(gpu.bits.cpu(), cpu.bits)
+    win = torch.from_numpy(np.ascontiguousarray(batches[0][:, 10:101]))
+    hits = []
+    for f, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        _, _, c, v = nthash.kmer_hashes(win.to(dev), 91)
+        hits.append(f.contains(c, v)[:, 0].cpu())
+    assert torch.equal(*hits) and hits[0].any()

@@ -186,13 +186,63 @@ def test_nthash_body_layouts(harness, shape, layout):
     assert_nthash_plain(codes, k, *out)
 
 
+# (B, L, k) of the ntHash launches the pe pipeline adds after stage 1:
+# the mapper's index chunks (one row of 2^18 codes, contigs separated
+# by code 4), its read batches trimmed to 160 columns, RResolver's read
+# batches and its r-mer windows at r = 91 (default_r of 150 bp reads);
+# the card's batches have 16384 rows, fewer here
+PE_SHAPES = {"index_chunk": (1, 1 << 18, 32), "reads160": (300, 160, 32),
+             "rmer_reads": (64, 256, 91), "rmer_windows": (50, 91, 91)}
+
+
+def pe_codes(name, seed):
+    """uint8 codes of a PE_SHAPES shape as the pipeline makes them: the
+    index chunk holds contigs of 100-5000 bases with a separator after
+    each, padded at the end; reads are 150 bases with rare N codes,
+    padded, the last rows all padding (a batch's tail); windows are
+    whole."""
+    B, L, k = PE_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    if name == "index_chunk":
+        parts, n = [], 0
+        while n < L - 3000:
+            c = rng.integers(0, 4, int(rng.integers(100, 5000)), np.uint8)
+            parts += [c, np.full(1, 4, np.uint8)]
+            n += len(c) + 1
+        codes = np.full((1, L), 4, np.uint8)
+        big = np.concatenate(parts)[:L]
+        codes[0, :len(big)] = big
+        return codes
+    codes = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    codes[rng.random((B, L)) < 0.002] = 4
+    if name != "rmer_windows":
+        codes[:, 150:] = 4
+        codes[-5:] = 4
+    return codes
+
+
+@pytest.mark.parametrize("layout", ["picked", "tile", "tile37"])
+@pytest.mark.parametrize("shape", list(PE_SHAPES))
+def test_nthash_body_pe_shapes(harness, shape, layout):
+    """The pe pipeline's new ntHash shapes, in the wrapper's layout and in
+    tile layouts, bit for bit against the plain version (with the strand
+    hashes the mapper and RResolver ask for, except in tile37)."""
+    B, L, k = PE_SHAPES[shape]
+    lay = nthash_layouts(B, L, k, kernels.nthash_geometry(harness))[layout]
+    codes = pe_codes(shape, seed=L + k)
+    out = harness_nthash(harness, codes, k, lay, strands=layout != "tile37")
+    assert_nthash_plain(codes, k, *out)
+
+
 @pytest.mark.parametrize("B,L,k,layout", [
     (4096, 31, 31, (256, 1)), (4096, 512, 31, (8, 482)),
     (4096, 40, 31, (204, 10)), (3, 512, 31, (3, 482)),
     (1, 64, 31, (1, 34)), (1, 1024, 31, (1, 512)), (1, 2048, 31, (1, 512)),
     (1, 16384, 31, (1, 512)), (1, 1 << 21, 31, (1, 4096)),
     (8, 5000, 25, (1, 512)), (40, 5000, 25, (1, 1024)),
-    (132, 5000, 25, (1, 4096)), (8, 3000, 2900, (2, 101))])
+    (132, 5000, 25, (1, 4096)), (8, 3000, 2900, (2, 101)),
+    (1, 1 << 18, 32, (1, 1024)), (16384, 160, 32, (28, 129)),
+    (16384, 256, 91, (23, 166)), (5000, 91, 91, (90, 1))])
 def test_nthash_layout_choice(B, L, k, layout):
     """Short rows are packed several to a block; long rows are tiled, in
     smaller tiles (down to a warp's 32 strips) while the grid has fewer
