@@ -7,6 +7,9 @@ import sys
 TOOLS = {
     "pe": ("abyss-pe pipeline driver (key=value args: name= k= in= "
            "device=cuda|cpu ...)", "abyss_tpu_torch.pipeline.pe", "main"),
+    "assemble": ("exact hash-DBG assembler (ABYSS; -k kmin-kmax[:step] "
+                 "sweep, .kmer snapshot resume, --device cuda|cpu)",
+                 "abyss_tpu_torch.cli.tools", "assemble_main"),
     "bloom-dbg": ("Bloom-filter de Bruijn graph assembler",
                   "abyss_tpu_torch.cli.tools", "bloom_dbg_main"),
     "bloom": ("Bloom filter utility (abyss-bloom: build/union/"

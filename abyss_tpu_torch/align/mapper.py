@@ -25,6 +25,7 @@ import torch
 
 from .. import resolve_device, u64
 from ..core import alphabet
+from ..dbg.hash_dbg import _trim_pad_columns
 from ..ops import nthash
 from ..ops.sort_join import join_rows
 
@@ -280,21 +281,6 @@ def _chain_blocks(strand, diag1, qs1, qe1, diag2, qs2, qe2, k,
     if tail:
         cigar.append(f"{tail}S")
     return t1, qs1, qe2, "".join(cigar)
-
-
-def _trim_pad_columns(codes, k: int):
-    """Drop all-padding trailing columns (host-side, numpy input only):
-    150 bp reads in a 256-wide buffer waste ~45% of every hash + sort
-    downstream.  The kept width rounds up to a multiple of 32.  A copy
-    of abyss_tpu/dbg/hash_dbg.py's `_trim_pad_columns`; the port has no
-    hash_dbg module yet."""
-    if not isinstance(codes, np.ndarray) or codes.ndim != 2:
-        return codes
-    used = (codes < 4).any(axis=0)
-    nz = np.nonzero(used)[0]
-    L = int(nz[-1]) + 1 if len(nz) else codes.shape[1]
-    L = min(codes.shape[1], max(k + 1, -(-L // 32) * 32))
-    return codes[:, :L] if L < codes.shape[1] else codes
 
 
 class KmerAligner:

@@ -12,8 +12,12 @@ from the JAX package's arrays (as numpy); the port's
 package through them.  Two device objects of the later stages convert
 the same way: the mapper's k-mer index (`kmer_index_from_numpy`) and a
 bit Bloom filter such as RResolver's r-mer filter or the visited
-filter (`bit_filter_from_numpy`).  The pipeline's own state between
-stages is its artifact files, which both packages read.
+filter (`bit_filter_from_numpy`).  The exact engine's state is its
+k-mer table (`kmer_table_from_numpy`); its `.kmer` snapshots are the
+JAX package's `.npz` layout (keys k, kmers, counts, alive, nbr, hr,
+text), which `dbg.hash_dbg.load_snapshot` and `save_snapshot` of
+either package read and write.  The pipeline's own state between stages
+is its artifact files, which both packages read.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from . import resolve_device, u64
 from .align.mapper import KmerIndex
+from .dbg.hash_dbg import KmerTable
 from .ops.bloom import BitBloomFilter, CountingBloomFilter
 from .ops.sort_join import pack_table
 from .ops.sorted_filter import SortedKmerFilter
@@ -86,3 +91,27 @@ def kmer_index_from_numpy(k: int, hashes: np.ndarray, contig: np.ndarray,
         contig=t(contig, np.int32), pos=t(pos, np.int32),
         is_fwd=t(is_fwd, bool), first_row=t(first_row, np.int32),
         names=list(names), lengths=list(lengths))
+
+
+def kmer_table_from_numpy(k: int, kmers: np.ndarray, counts: np.ndarray,
+                          alive: np.ndarray, nbr: np.ndarray | None = None,
+                          hr: np.ndarray | None = None,
+                          text: np.ndarray | None = None,
+                          fwd_counts: np.ndarray | None = None,
+                          cs: np.ndarray | None = None,
+                          device="cuda") -> KmerTable:
+    """The exact engine's KmerTable, its device programs on `device`,
+    from the JAX package's table arrays (kmers, hr and cs uint64,
+    counts and fwd_counts int32, alive bool, nbr int32[N, 8], text
+    uint8[N, ceil(k/4)])."""
+    resolve_device(device)
+
+    def opt(a, dtype):
+        return None if a is None else np.array(a, dtype)
+
+    return KmerTable(int(k), np.array(kmers, np.uint64),
+                     np.array(counts, np.int32), np.array(alive, bool),
+                     nbr=opt(nbr, np.int32), hr=opt(hr, np.uint64),
+                     text=opt(text, np.uint8),
+                     fwd_counts=opt(fwd_counts, np.int32),
+                     cs=opt(cs, np.uint64), device=str(device))

@@ -52,6 +52,18 @@ _FWD_TAB = (SEED_A, SEED_C, SEED_G, SEED_T, 0)
 # reverse-complement table: seed of the complement base
 _REV_TAB = (SEED_T, SEED_G, SEED_C, SEED_A, 0)
 
+# The independent alternate seed table of the wide-mode text checksum
+# (`kmer_hashes_alt`): splitmix64 mixes of the primary seeds, so a
+# primary collision does not carry over, with the complement pairing
+# R2[c] = F2[3 - c] kept, so rev2(seq) == fwd2(rc(seq)).
+ALT_A = 0x9E2C61E1E2B1A3D7
+ALT_C = 0x6F1D7D3E85A97C15
+ALT_G = 0xB46E2D9C0F53A681
+ALT_T = 0x1C84F3B6D92E074A
+_TABLES = {"f": _FWD_TAB, "r": _REV_TAB,
+           "af": (ALT_A, ALT_C, ALT_G, ALT_T, 0),
+           "ar": (ALT_T, ALT_G, ALT_C, ALT_A, 0)}
+
 
 def _srol_int(v: int, n: int) -> int:
     """Split-rotate of one Python int (for the constant tables)."""
@@ -64,11 +76,12 @@ def _srol_int(v: int, n: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _table(strand: str, k: int, device: str) -> torch.Tensor:
-    """int64[5] seed table ("f"/"r"), split-rotated by k, on device.
+    """int64[5] seed table ("f"/"r", or the alternate "af"/"ar"),
+    split-rotated by k, on device.
 
     Cached per device: building it is a host-to-device copy, which
     inside the walk loop would be a synchronisation per step."""
-    tab = _FWD_TAB if strand == "f" else _REV_TAB
+    tab = _TABLES[strand]
     return torch.tensor([u64.s64(_srol_int(v, k)) for v in tab],
                         dtype=torch.int64, device=device)
 
@@ -104,6 +117,29 @@ def _prefix_xor(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(a[..., :1]), a], dim=-1)
 
 
+def _window_hashes(codes: torch.Tensor, k: int, tables=("f", "r")):
+    """(fwd, rev) of every k-window under the seed tables `tables`, by
+    the closed form: per position pre-rotated seeds, a prefix XOR along
+    the read and one final rotation per window."""
+    L = codes.shape[-1]
+    W = L - k + 1
+    if W <= 0:
+        raise ValueError(f"read length {L} < k={k}")
+    dev = codes.device
+    safe = codes.clamp(max=4).long()
+    p = torch.arange(L, device=dev)
+    y = srol(_table(tables[0], 0, str(dev))[safe], (-p) % SROL_PERIOD)
+    z = srol(_table(tables[1], 0, str(dev))[safe], p % SROL_PERIOD)
+    Py = _prefix_xor(y)
+    Pz = _prefix_xor(z)
+    i = torch.arange(W, device=dev)
+    wy = Py[..., k:] ^ Py[..., :W]  # XOR over window [i, i+k)
+    wz = Pz[..., k:] ^ Pz[..., :W]
+    fwd = srol(wy, (k - 1 + i) % SROL_PERIOD)
+    rev = srol(wz, (SROL_PERIOD - i % SROL_PERIOD) % SROL_PERIOD)
+    return fwd, rev
+
+
 def kmer_hashes_plain(codes: torch.Tensor, k: int):
     """All k-mer window hashes of a batch of reads, in plain tensor ops.
 
@@ -116,28 +152,23 @@ def kmer_hashes_plain(codes: torch.Tensor, k: int):
       True iff window [i, i+k) holds only ACGT codes.  Hashes at invalid
       windows follow the same formula with N seeds of 0.
     """
-    L = codes.shape[-1]
-    W = L - k + 1
-    if W <= 0:
-        raise ValueError(f"read length {L} < k={k}")
-    dev = codes.device
-    safe = codes.clamp(max=4).long()
-    p = torch.arange(L, device=dev)
-    y = srol(_table("f", 0, str(dev))[safe], (-p) % SROL_PERIOD)
-    z = srol(_table("r", 0, str(dev))[safe], p % SROL_PERIOD)
-    Py = _prefix_xor(y)
-    Pz = _prefix_xor(z)
-    i = torch.arange(W, device=dev)
-    wy = Py[..., k:] ^ Py[..., :W]  # XOR over window [i, i+k)
-    wz = Pz[..., k:] ^ Pz[..., :W]
-    fwd = srol(wy, (k - 1 + i) % SROL_PERIOD)
-    rev = srol(wz, (SROL_PERIOD - i % SROL_PERIOD) % SROL_PERIOD)
+    fwd, rev = _window_hashes(codes, k)
+    W = fwd.shape[-1]
     canon = u64.umin(fwd, rev)
     bad = (codes >= 4).to(torch.int32)
     Pbad = torch.cat([torch.zeros_like(bad[..., :1]),
                       torch.cumsum(bad, dim=-1, dtype=torch.int32)], dim=-1)
     valid = (Pbad[..., k:] - Pbad[..., :W]) == 0
     return fwd, rev, canon, valid
+
+
+def kmer_hashes_alt(codes: torch.Tensor, k: int):
+    """(fwd2, rev2) of every k-window under the alternate seed table:
+    the wide-mode text checksum of dbg/hash_dbg.fill_wide_side (JAX
+    ops/nthash.kmer_hashes_alt).  Torch ops on the codes' device; a
+    collision of two k-mer texts in both the fingerprint and this
+    checksum needs a 128-bit coincidence."""
+    return _window_hashes(codes, k, ("af", "ar"))
 
 
 def _kernel_2d(codes: torch.Tensor, k: int, strands: bool):

@@ -37,14 +37,14 @@ Stage map (bloom mode, cf. SURVEY.md §3.1 and bin/abyss-pe:553-749):
   10   lr=/long= rescaffolding -> name-10.fa
   stats abyss-fac             -> name-stats.{tab,csv,md}
 
-Port of abyss_tpu/pipeline/pe.py: the bloom engine's chain, stages 1
-to 8 and stats, writing the JAX package's artifacts byte for byte.
-Every stage that puts a tensor on a device takes `device` (default
-"cuda": without a card it raises unless "cpu").  The branches not
-ported yet raise NotImplementedError naming their ROADMAP item and
-never fall back to something else: engine="exact" (A9), K > 0 (A10),
-colour-space input (A10), lr= and long= (A10), sealer_ks (A10) and
-np=/nh= above 1 (A12).
+Port of abyss_tpu/pipeline/pe.py: stages 1 to 8, 10 and stats with
+the bloom engine or the exact hash-DBG engine (engine=exact, packed or
+wide k), colour-space input, lr= and long=, writing the JAX package's
+artifacts byte for byte.  Every stage that puts a tensor on a device
+takes `device` (default "cuda": without a card it raises unless
+"cpu").  The branches not ported yet raise NotImplementedError naming
+their ROADMAP item and never fall back to something else: K > 0 (A10),
+sealer_ks (A10) and np=/nh= above 1 (A12).
 """
 
 from __future__ import annotations
@@ -56,9 +56,8 @@ from dataclasses import dataclass, field
 
 from .. import resolve_device
 from ..align import distance_est, fixmate, mapper, nw
-from ..core import alphabet
 from ..core.histogram import Histogram, contiguity_stats, format_stats_table
-from ..dbg import bloom_dbg
+from ..dbg import bloom_dbg, hash_dbg
 from ..dbg.params import AssemblyParams
 from ..graph import adjlist, algorithms, graphio
 from ..graph.contig_graph import ContigGraph, node
@@ -234,30 +233,12 @@ def _fresh(p: PipelineParams, out: str) -> bool:
     return not os.path.exists(out)
 
 
-def _detect_colour_space(in_files) -> bool:
-    """True when the first record of the first input looks colour-space
-    (FastaReader's isColourSpace test: anchor base then digits); the
-    JAX package's pipeline/cs.detect."""
-    for path in in_files:
-        for rec in fastx.read_fastx(path):
-            return alphabet.is_colour_space(rec.seq)
-    return False
-
-
 def _unported(p: PipelineParams) -> str | None:
     """What of `p` this port cannot run yet, with its ROADMAP item."""
-    if p.engine == "exact":
-        return "engine=exact (the exact hash-DBG engine, ROADMAP A9)"
     if p.K:
         return "K= (the paired-DBG engine, ROADMAP A10)"
     if p.np_devices > 1 or p.n_hosts > 1:
         return "np=/nh= above 1 (multi-device stage 1, ROADMAP A12)"
-    if p.cs:
-        return "colour-space input (pipeline/cs.py, ROADMAP A10)"
-    if p.lr_files:
-        return "lr= (linked-read rescaffolding, ROADMAP A10)"
-    if p.long_files:
-        return "long= (long-read rescaffolding, ROADMAP A10)"
     if p.sealer_ks:
         return "sealer_ks= (gap sealing, ROADMAP A10)"
     return None
@@ -271,6 +252,21 @@ def stage_unitigs_1(p: PipelineParams) -> str:
     if not _fresh(p, out):
         return out
     in_files = p.assembly_files()
+    if p.engine == "exact":
+        _log(p, f"stage 1: exact hash-DBG assembly -> {out}")
+        batches = [b.codes for b in io_read_batches(
+            in_files, p.batch_size, p.max_read_len, q=p.q)]
+        contigs, _ = hash_dbg.assemble_reads(
+            batches, p.k, kc=p.kc,
+            erode_cov=p.e, erode_strand=p.E, tip_len=p.t,
+            auto_params=True, min_mean_cov=p.c,
+            bubble_len=(p.b - p.k + 1 if p.b is not None else None),
+            device=p.device)
+        with open(out + ".tmp", "w") as f:
+            for i, (seq, cov) in enumerate(contigs):
+                f.write(f">{i} {len(seq)} {cov}\n{seq}\n")
+        os.rename(out + ".tmp", out)
+        return out
     if any(v is not None for v in (p.e, p.E, p.c, p.b)):
         _log(p, "warning: e/E/c/b apply to the exact/paired engines "
                 "only; the bloom engine uses kc + its tip rules "
@@ -520,6 +516,33 @@ def stage_contigs_6(p: PipelineParams) -> str:
     assembled = path_overlap.assemble_overlapping_paths(merged, ss=p.ss)
     pathtools.write_paths(assembled, g, p.path("4.path3"), start_id=0)
 
+    if p.cs:
+        # colour-space branch (bin/abyss-pe:673-697 `ifdef cs`):
+        # PathConsensus is skipped (-5 symlinks -4), paths merge to
+        # name-cs.fa, then KAligner|Consensus produce nucleotides
+        from . import cs as cs_mod
+        next_id = max((int(n) for n in g.names if n.isdigit()),
+                      default=-1) + 1
+        used = set()
+        cs_contigs, cs_covs = [], []
+        for pth in assembled:
+            seq = pathtools.materialize_path(pth, g, seqs, k=p.k)
+            cov = sum(g.coverages[v >> 1] for v in pth
+                      if not pa.is_amb(v))
+            cs_contigs.append((str(next_id), seq))
+            cs_covs.append(cov)
+            next_id += 1
+            used.update(v >> 1 for v in pth if not pa.is_amb(v))
+        for cid in g.contigs():
+            if cid not in used:
+                n = g.names[cid]
+                cs_contigs.append((n, seqs[n]))
+                cs_covs.append(g.coverages[cid])
+        cs_fa = p.path("cs.fa")
+        _write_contigs(cs_fa, cs_contigs, cs_covs)
+        graphio.write_dot(g, p.path("5.dot"), k=p.k)
+        return cs_mod.finish_nt(p, cs_fa)
+
     # PathConsensus -> -5.{path,fa,dot} (resolve ambiguous N entries)
     res = path_consensus.resolve_paths(
         g, seqs, assembled, p.k, identity=p.bubble_identity,
@@ -677,6 +700,55 @@ def stage_scaffolds_8(p: PipelineParams) -> str:
     return out
 
 
+def stage_linked_10(p: PipelineParams) -> str | None:
+    """lr=/long= rescaffolding -> name-10.fa (bin/abyss-pe:752-901)."""
+    if not p.lr_files and not p.long_files:
+        return None
+    out = p.path("10.fa")
+    if not _fresh(p, out):
+        return out
+    contigs, _ = _read_contigs(p.path("8.fa"))
+    if p.lr_files:
+        from ..scaffold.linked_reads import rescaffold_linked
+        _log(p, "stage 10: linked-read (tigmint+arcs) rescaffolding")
+        scaffolds, st = rescaffold_linked(
+            contigs, p.lr_files, align_k=p.align_k,
+            min_pairs=p.min_pairs, min_len=p.min_len,
+            batch_size=p.batch_size, max_read_len=p.max_read_len,
+            device=p.device)
+        _log(p, f"stage 10: {st['molecules']} molecules, {st['cuts']} "
+                f"cuts, {st['links']} links, {st['scaffolds']} scaffolds")
+    else:
+        _log(p, "stage 10: long-read rescaffolding")
+        hist, links = _map_library(p, p.path("8.fa"), p.long_files,
+                                   p.align_k)
+        est = distance_est.estimate_distances(
+            links, hist, min_pairs=max(1, p.min_pairs // 2),
+            min_align=p.align_k, device=p.device)
+        dg = ContigGraph()
+        seqs = dict(contigs)
+        for name, seq in contigs:
+            dg.add_contig(name, len(seq))
+        for (un, su, vn, sv), e in est.items():
+            dg.add_edge(node(dg.id_of(un), su), node(dg.id_of(vn), sv),
+                        {"d": e.distance, "n": e.num_pairs,
+                         "sd": e.std_dev})
+        r = scaffolder.build_scaffold_paths(
+            dg, max(1, p.min_pairs // 2), p.min_len, k=p.k, ss=p.ss)
+        used = set()
+        scaffolds = []
+        for i, pth in enumerate(r.paths):
+            scaffolds.append((f"scaffold{i}", pathtools.materialize_path(
+                pth, dg, seqs, k=p.k)))
+            used.update(v >> 1 for v in pth if not pa.is_amb(v))
+        for cid in dg.contigs():
+            if cid not in used:
+                n = dg.names[cid]
+                scaffolds.append((n, seqs[n]))
+    _write_contigs(out, scaffolds)
+    return out
+
+
 def stage_stats(p: PipelineParams) -> str:
     out = p.path("stats.tab")
     # friendly alias artifacts (bin/abyss-pe %-unitigs.fa etc. symlinks)
@@ -725,10 +797,9 @@ def run(p: PipelineParams) -> dict[str, str]:
     """Run the full pipeline; returns artifact paths.  Raises
     NotImplementedError for a branch the port does not have yet, and
     RuntimeError for device="cuda" without a card."""
+    from . import cs as cs_mod
     t0 = time.time()
     resolve_device(p.device)
-    if p.cs is None:
-        p.cs = bool(p.in_files) and _detect_colour_space(p.in_files)
     missing = _unported(p)
     if missing:
         raise NotImplementedError(
@@ -742,12 +813,29 @@ def run(p: PipelineParams) -> dict[str, str]:
         _log(p, f"[wall] {label}: {time.time() - ts:.1f}s")
         return r
 
+    if p.cs is None:
+        p.cs = bool(p.in_files) and cs_mod.detect(p.in_files)
+    if p.cs and not p.cs_orig_files:
+        _log(p, "colour-space input: letter-encoding colours "
+                "(bin/abyss-pe:673-697 cs flow)")
+        cs_mod.prepare(p)
+
     artifacts["unitigs1"] = timed("stage 1 (unitigs)", stage_unitigs_1, p)
     artifacts["unitigs"], _ = timed("stage 2-3 (graph)", stage_graph_2_3, p)
     artifacts["dist"] = timed("stage 4-5 (map+dist)", stage_dist_5, p)
     artifacts["contigs"] = timed("stage 6 (contigs)", stage_contigs_6, p)
+    if p.cs:
+        # the cs flow ends at nucleotide contigs (-6.fa); mate-pair
+        # scaffolding over nt contigs would need nt mate maps the cs
+        # libraries cannot provide directly
+        artifacts["stats"] = stage_stats(p)
+        _log(p, f"done in {time.time() - t0:.1f}s")
+        return artifacts
     artifacts["scaffolds"] = timed("stage 7-8 (scaffolds)",
                                    stage_scaffolds_8, p)
+    ten = stage_linked_10(p)
+    if ten:
+        artifacts["rescaffolds"] = ten
     artifacts["stats"] = stage_stats(p)
     if p.db_path:
         from ..utils.db import open_db

@@ -59,12 +59,32 @@ Phases, each printing one JSON line:
           genome; samtobreak's breakpoints of the
           scaffolds of 200 bp or more (not gated).  Then the ntHash
           kernel at every shape the pe run launched, as after main.
+  exact_parity  on the parity phase's reads, on the GPU and on the CPU:
+          `pe engine=exact` (k=31), `pe long=` (both mate files as long
+          reads), `pe` on a colour-space copy of the reads (k=25) and
+          `assemble -k 64` (wide mode, with its snapshot): every
+          artifact byte-identical.
+  exact_pe  `pe.run(engine="exact")` on the card with the main phase's
+          reads and pe's own defaults at k=31 (e, E and c from the
+          coverage model), launch counts reset around it: each stage's
+          span, the exact engine's phase spans (count, kc filter,
+          adjacency, erode, trim, low-coverage loop, bubbles, assemble),
+          peak device memory, sha256, count, N50 and sum of unitigs,
+          contigs and scaffolds, and the pe phase's genome gates.
+  wide    `assemble -k 96 --kc 3` (the exact engine in wide mode, the
+          JAX package's BASELINE config #2) on the same reads through
+          the tool's entry point, launch counts reset around it: phase
+          spans, fingerprint collisions, peak memory, the contigs of
+          500 bp or more held to the genome as in main; every ntHash
+          launch recorded by stage and shape, then the kernel at each of
+          those shapes against the plain version (`nthash_exact_shapes`).
 
 Then one `kernels` JSON line (each kernel's launches on the path that
 runs it, and on the pe path for the kernels pe runs, error against its
-plain version, times and bound; for ntHash also its times at three
-shapes and launches x (ms - bound_ms) summed over every shape of the
-main run and of the pe run), and as the last line
+plain version, times and bound; for ntHash also its launches on the
+exact_pe and wide paths, its times at three shapes and launches x
+(ms - bound_ms) summed over every shape of the main, pe and wide runs),
+and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 the last line.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero at once.
@@ -1125,6 +1145,57 @@ class PeCapture:
                     mle_equal=mle_equal)
 
 
+def _pe_outputs(params, genome: str) -> tuple[dict, list]:
+    """A finished pe run held to its genome: the count, N50 and sums of
+    unitigs, contigs and scaffolds, sha256 of name-3/6/8.fa, and every
+    N-free block of 500 bp or more of the scaffolds placed on the genome
+    (ungapped_mismatches).  Returns the row's fields and the scaffolds;
+    _check_pe_outputs applies the gates."""
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.core.histogram import contiguity_stats
+    from abyss_tpu_torch.io import fastx
+    stats = {}
+    for suffix, label in (("3.fa", "unitigs"), ("6.fa", "contigs"),
+                          ("8.fa", "scaffolds")):
+        lengths = _fa_lengths(params.path(suffix))
+        st = contiguity_stats(lengths, min_size=500, name=label)
+        stats[label] = dict(n=st["n"], n_500=st["n:500"], N50=st["N50"],
+                            sum_500=st["sum"], sum=sum(lengths),
+                            max=st["max"])
+    sha = {}
+    for suffix in ("3.fa", "6.fa", "8.fa"):
+        with open(params.path(suffix), "rb") as f:
+            sha[f"name-{suffix}"] = hashlib.sha256(f.read()).hexdigest()
+    scaffolds = [(r.id, r.seq)
+                 for r in fastx.read_fastx(params.path("8.fa"))]
+    rc = alphabet.revcomp(genome)
+    blocks = [b for _, s in scaffolds for b in s.split("N") if len(b) >= 500]
+    strict = sum(1 for b in blocks if b not in genome and b not in rc)
+    strands = ((genome, alphabet.encode(genome)), (rc, alphabet.encode(rc)))
+    placed = [ungapped_mismatches(b, strands) for b in blocks]
+    return dict(
+        sha256=sha, stats=stats,
+        n_scaffolds_with_gap=sum(1 for _, s in scaffolds if "N" in s),
+        blocks_500=len(blocks), not_substring_500=strict,
+        blocks_500_unplaced=sum(p is None for p in placed),
+        substitutions_500=sum(len(p) for p in placed if p),
+        block_bases_500=sum(len(b) for b in blocks)), scaffolds
+
+
+def _check_pe_outputs(row: dict, phase: str) -> None:
+    """The genome gates of a pe run's row (_pe_outputs' fields)."""
+    stats, unplaced = row["stats"], row["blocks_500_unplaced"]
+    check(unplaced == 0,
+          f"{phase}: {unplaced} N-free blocks >= 500 bp of the scaffolds "
+          f"have no ungapped placement on the genome with at most "
+          f"{MAX_SUBS_PER_WINDOW} substitutions in {SUBS_WINDOW} bases")
+    check(stats["scaffolds"]["N50"] >= stats["unitigs"]["N50"],
+          f"{phase}: scaffold N50 below unitig N50")
+    check(stats["scaffolds"]["sum"] >= MIN_SCAFFOLD_SUM * row["genome_bp"],
+          f"{phase}: scaffolds sum to {stats['scaffolds']['sum']} bp, below "
+          f"{MIN_SCAFFOLD_SUM} of the genome")
+
+
 def phase_pe(tmp: str, paths, genome: str) -> tuple:
     """`pe.run` on the card with the main phase's reads and pe's own
     defaults at k = 31: stages 1 to 8 and stats, launch counts set to 0
@@ -1135,10 +1206,7 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
     the ntHash recorder."""
     import torch
     from abyss_tpu_torch.align import distance_est, mapper
-    from abyss_tpu_torch.core import alphabet
-    from abyss_tpu_torch.core.histogram import contiguity_stats
     from abyss_tpu_torch.graph import rresolver
-    from abyss_tpu_torch.io import fastx
     from abyss_tpu_torch.ops import kernels
     from abyss_tpu_torch.pipeline import pe
     from abyss_tpu_torch.stats import samtobreak
@@ -1179,29 +1247,7 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
           f"fewer than {MIN_MLE_DEVICE_GROUPS}")
     held = cap.hold_to_cpu()
 
-    def art(suffix):
-        return params.path(suffix)
-
-    stats = {}
-    for suffix, label in (("3.fa", "unitigs"), ("6.fa", "contigs"),
-                          ("8.fa", "scaffolds")):
-        lengths = _fa_lengths(art(suffix))
-        st = contiguity_stats(lengths, min_size=500, name=label)
-        stats[label] = dict(n=st["n"], n_500=st["n:500"], N50=st["N50"],
-                            sum_500=st["sum"], sum=sum(lengths),
-                            max=st["max"])
-    sha = {}
-    for suffix in ("3.fa", "6.fa", "8.fa"):
-        with open(art(suffix), "rb") as f:
-            sha[f"name-{suffix}"] = hashlib.sha256(f.read()).hexdigest()
-    scaffolds = [(r.id, r.seq) for r in fastx.read_fastx(art("8.fa"))]
-    rc = alphabet.revcomp(genome)
-    blocks = [b for _, s in scaffolds for b in s.split("N") if len(b) >= 500]
-    strict = sum(1 for b in blocks if b not in genome and b not in rc)
-    strands = ((genome, alphabet.encode(genome)), (rc, alphabet.encode(rc)))
-    placed = [ungapped_mismatches(b, strands) for b in blocks]
-    unplaced = sum(p is None for p in placed)
-    subs = sum(len(p) for p in placed if p)
+    held_genome, scaffolds = _pe_outputs(params, genome)
     t1 = time.perf_counter()
     brk = samtobreak.contig_breakpoints(
         genome, [(n, s) for n, s in scaffolds if len(s) >= 200],
@@ -1216,12 +1262,7 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
         spans_s={n: spans.gross[n] for n in spans.gross
                  if n not in PE_STAGES},
         calls={n: spans.calls[n] for n in spans.calls if n not in PE_STAGES},
-        mle_groups_device=cap.mle_groups, **held,
-        sha256=sha, stats=stats, n_scaffolds_with_gap=sum(
-            1 for _, s in scaffolds if "N" in s),
-        blocks_500=len(blocks), not_substring_500=strict,
-        blocks_500_unplaced=unplaced, substitutions_500=subs,
-        block_bases_500=sum(len(b) for b in blocks),
+        mle_groups_device=cap.mle_groups, **held, **held_genome,
         breakpoints_200=brk.breakpoints,
         breakpoint_contigs_200=brk.contigs,
         aligned_fraction_200=brk.aligned_fraction, samtobreak_s=brk_s,
@@ -1230,15 +1271,7 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
                               strands=key[4], launches=n)
                          for key, n in sorted(shapes.hist.items())])
     emit(row)
-    check(unplaced == 0,
-          f"pe: {unplaced} N-free blocks >= 500 bp of the scaffolds have no "
-          f"ungapped placement on the genome with at most "
-          f"{MAX_SUBS_PER_WINDOW} substitutions in {SUBS_WINDOW} bases")
-    check(stats["scaffolds"]["N50"] >= stats["unitigs"]["N50"],
-          "pe: scaffold N50 below unitig N50")
-    check(stats["scaffolds"]["sum"] >= MIN_SCAFFOLD_SUM * genome_bp,
-          f"pe: scaffolds sum to {stats['scaffolds']['sum']} bp, below "
-          f"{MIN_SCAFFOLD_SUM} of the genome")
+    _check_pe_outputs(row, "pe")
     return row, shapes
 
 
@@ -1286,6 +1319,254 @@ def phase_pe_parity(tmp: str) -> dict:
         scaffolds = f.read().count(">")
     return dict(phase="pe_parity", artifacts=len(gpu), identical=True,
                 scaffolds=scaffolds, gpu_s=times["cuda"], cpu_s=times["cpu"])
+
+
+
+# the exact engine's phases: count, then assemble_table's phase points
+EXACT_PHASES = ("count", "kc filter", "wide fill", "adjacency", "erode",
+                "trim", "low-cov loop", "bubbles", "assemble")
+# the wide phase: `assemble -k 96 --kc 3`, the JAX package's BASELINE
+# config #2 (stage 1 in wide mode, BENCH_NOTES.md)
+WIDE_K = 96
+WIDE_KC = 3
+
+
+class ExactCapture:
+    """During a run of the exact engine: the seconds of each of its
+    phases (hash_dbg.assemble_reads given a `timings` dict, which ends
+    every phase in a device synchronisation) and the wide fill's rows
+    and fingerprint collisions."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.calls = 0
+        self.collisions = 0
+        self.fill_rows = 0
+        self._undo: list = []
+
+    def __enter__(self):
+        from abyss_tpu_torch.dbg import hash_dbg
+        assemble, fill = hash_dbg.assemble_reads, hash_dbg.fill_wide_side
+
+        def assemble_reads(*a, **kw):
+            self.calls += 1
+            return assemble(*a, timings=self.seconds, **kw)
+
+        def fill_wide_side(t, *a, **kw):
+            out = fill(t, *a, **kw)
+            self.collisions += t.collisions
+            self.fill_rows += t.n
+            return out
+
+        for name, fn in (("assemble_reads", assemble_reads),
+                         ("fill_wide_side", fill_wide_side)):
+            self._undo.append((name, getattr(hash_dbg, name)))
+            setattr(hash_dbg, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from abyss_tpu_torch.dbg import hash_dbg
+        for name, fn in reversed(self._undo):
+            setattr(hash_dbg, name, fn)
+        self._undo.clear()
+
+    def phases(self) -> dict:
+        return {n: self.seconds[n] for n in EXACT_PHASES
+                if n in self.seconds}
+
+
+def phase_exact_pe(tmp: str, paths, genome: str) -> dict:
+    """`pe.run(engine="exact")` on the card with the main phase's reads
+    and pe's own defaults at k = 31 (auto e, E and c from the coverage
+    model, as scripts/genome_e2e.py runs it), launch counts set to 0
+    just before and read just after: each stage's span, the exact
+    engine's phase spans, peak device memory; unitigs, contigs and
+    scaffolds against the genome with the pe phase's gates."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.pipeline import pe
+    params = _pe_params("ex", paths, os.path.join(tmp, "exact_pe"), "cuda")
+    params.engine = "exact"
+    spans = Spans()
+    for name in PE_STAGES:
+        spans.wrap(pe, name)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with ExactCapture() as cap:
+            pe.run(params)
+    finally:
+        launches = dict(kernels.launches)
+        spans.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the packed engine hashes nothing; stages 4-8's mapper launch ntHash
+    check(launches["nthash"] > 0, "kernel nthash was not launched on the "
+                                  "exact pe path")
+    check(cap.calls == 1, f"pe ran the exact engine {cap.calls} times")
+    held, _ = _pe_outputs(params, genome)
+    row = dict(phase="exact_pe", genome_bp=len(genome), engine="exact",
+               reads=[os.path.basename(p) for p in paths], k=params.k,
+               batch_size=params.batch_size,
+               max_read_len=params.max_read_len, kc=params.kc,
+               wall_s=wall,
+               stage_s={n: spans.gross.get(n, 0.0) for n in PE_STAGES},
+               exact_phase_s=cap.phases(), **held,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    _check_pe_outputs(row, "exact_pe")
+    return row
+
+
+def phase_wide(tmp: str, paths, genome: str) -> tuple:
+    """`assemble -k 96 --kc 3` (the exact engine in wide mode, through
+    the assemble tool's entry point) on the card with the main phase's
+    reads, launch counts set to 0 just before and read just after, and
+    every ntHash launch recorded by stage (count, fill) and shape: the
+    phase spans, the fingerprint collisions (0 expected), peak memory,
+    and the contigs of 500 bp or more held to the genome as the main
+    phase holds its own.  Returns its row and the ntHash recorder."""
+    import torch
+    from abyss_tpu_torch.cli import tools
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.dbg import hash_dbg
+    from abyss_tpu_torch.io import fastx
+    from abyss_tpu_torch.ops import kernels
+    out = os.path.join(tmp, "wide.fa")
+    opts = ["-k", str(WIDE_K), "--kc", str(WIDE_KC)]
+    argv = [*paths, *opts, "-o", out, "--device", "cuda"]
+    stages = ((hash_dbg, "_count_kmers_wide", "count"),
+              (hash_dbg, "fill_wide_side", "fill"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with ExactCapture() as cap, NthashShapes(stages) as shapes:
+            tools.assemble_main(argv)
+    finally:
+        launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(launches["nthash"] > 0, "kernel nthash was not launched on the "
+                                  "wide path")
+    check(cap.fill_rows > 0, "the wide path filled no side arrays")
+    seqs = [r.seq for r in fastx.read_fastx(out)]
+    check(len(seqs) > 0, "wide: assembled no contig")
+    rc = alphabet.revcomp(genome)
+    long_ = [s for s in seqs if len(s) >= 500]
+    off = [s for s in long_ if s not in genome and s not in rc]
+    # a genome substring's inside is one too
+    wrong = sum(1 for s in off if s[WIDE_K:-WIDE_K] not in genome
+                and s[WIDE_K:-WIDE_K] not in rc)
+    lengths = [len(s) for s in seqs]
+    with open(out, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    row = dict(phase="wide", command=" ".join(["assemble", *opts]),
+               genome_bp=len(genome), k=WIDE_K, kc=WIDE_KC, wall_s=wall,
+               exact_phase_s=cap.phases(), solid_rows=cap.fill_rows,
+               collisions=cap.collisions, contigs=len(seqs),
+               total_bases=sum(lengths), n50=_n50(lengths),
+               max_contig=max(lengths), contigs_500=len(long_),
+               cover_500=sum(len(s) for s in long_) / len(genome),
+               not_substring_500=len(off), wrong_500_inside_ends=wrong,
+               fasta_sha256=sha,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               nthash_launches=[dict(stage=key[0], shape=list(key[1:3]),
+                                     k=key[3], strands=key[4], launches=n)
+                                for key, n in sorted(shapes.hist.items())])
+    emit(row)
+    _check_contigs(row)
+    return row, shapes
+
+
+def phase_wide_shapes(rec: NthashShapes) -> dict:
+    """The ntHash kernel at every shape the wide run launched, as
+    phase_nthash_shapes does for the main run: launches, graph_ms, bound,
+    plain ms, bit-identity.  Also the wide fill's text checksum
+    (nthash.kmer_hashes_alt, torch ops) on the codes of its most frequent
+    shape: its time, by CUDA events around each call."""
+    from abyss_tpu_torch.ops import nthash
+    rows, gap = nthash_shape_rows(rec)
+    fill = max((key for key in rec.hist if key[0] == "fill"),
+               key=lambda key: rec.hist[key])
+    codes, k = rec.codes[fill], fill[3]
+    alt = dict(shape=list(codes.shape), k=k, form="torch ops",
+               ms=median_ms(lambda: nthash.kmer_hashes_alt(codes, k), 21))
+    return dict(phase="kernel", kernel="nthash_exact_shapes",
+                launches=sum(r["launches"] for r in rows), gap_ms=gap,
+                histogram=rows, alt_checksum=alt)
+
+
+def _cs_copy(src: str, dst: str) -> None:
+    """A colour-space FASTA copy of a FASTQ file (anchor base, then the
+    colours)."""
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.io import fastx
+    with open(dst, "w") as f:
+        for rec in fastx.read_fastx(src):
+            f.write(f">{rec.id}\n{alphabet.nucleotide_to_colour(rec.seq)}\n")
+
+
+def phase_exact_parity(tmp: str) -> dict:
+    """On the parity phase's reads, on the card and on the CPU: `pe
+    engine=exact` at k = 31, `pe long=` (both mate files as long reads,
+    exact engine), `pe` on a colour-space copy of the reads (k = 25) and
+    `assemble -k 64` (wide) with its snapshot: every artifact
+    byte-identical."""
+    from abyss_tpu_torch.cli import tools
+    from abyss_tpu_torch.pipeline import pe
+    paths = [os.path.join(tmp, "p1.fq"), os.path.join(tmp, "p2.fq")]
+    cs_paths = [os.path.join(tmp, f"p{i}-cs.fa") for i in (1, 2)]
+    for src, dst in zip(paths, cs_paths):
+        _cs_copy(src, dst)
+
+    def run_pe(out, device, **kw):
+        params = _pe_params("par", kw.pop("reads", paths), out, device)
+        params.engine = "exact"
+        for name, value in kw.items():
+            setattr(params, name, value)
+        pe.run(params)
+
+    def run_assemble(out, device):
+        os.makedirs(out)
+        tools.assemble_main([*paths, "-k", "64", "-o",
+                             os.path.join(out, "out.fa"), "--snapshot",
+                             os.path.join(out, "snap.kmer"), "--bubbles",
+                             os.path.join(out, "bubbles.fa"), "--device",
+                             device])
+
+    runs = {"pe_exact": lambda out, dev: run_pe(out, dev),
+            "pe_long": lambda out, dev: run_pe(out, dev,
+                                               long_files=list(paths)),
+            "pe_cs": lambda out, dev: run_pe(out, dev, reads=cs_paths, k=25,
+                                             min_pairs=2, min_len=100),
+            "assemble_k64": run_assemble}
+    row = dict(phase="exact_parity", identical=True, runs={})
+    for name, fn in runs.items():
+        trees, times = {}, {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"exact_parity_{name}_{device}")
+            t0 = time.perf_counter()
+            fn(out, device)
+            times[device] = time.perf_counter() - t0
+            trees[device] = _tree_bytes(out)
+        gpu, cpu = trees["cuda"], trees["cpu"]
+        differ = sorted(n for n in set(gpu) | set(cpu)
+                        if gpu.get(n) != cpu.get(n))
+        check(not differ, f"exact parity {name}: GPU and CPU artifacts "
+                          f"differ: {differ}")
+        first = gpu.get("par-1.fa", gpu.get("out.fa", b""))
+        check(first.count(b">") > 0, f"exact parity {name}: no contig")
+        row["runs"][name] = dict(artifacts=len(gpu), gpu_s=times["cuda"],
+                                 cpu_s=times["cpu"])
+    check("par-10.fa" in _tree_bytes(os.path.join(
+        tmp, "exact_parity_pe_long_cuda")), "pe long= wrote no name-10.fa")
+    check("par-cs.fa" in _tree_bytes(os.path.join(
+        tmp, "exact_parity_pe_cs_cuda")), "cs pe wrote no name-cs.fa")
+    return row
 
 
 
@@ -1339,6 +1620,12 @@ def main() -> int:
         pe_shapes = phase_pe_shapes(pe_recorded)
         emit(pe_shapes)
         del pe_recorded
+        emit(phase_exact_parity(tmp))
+        exact_row = phase_exact_pe(tmp, paths, genome)
+        wide_row, wide_recorded = phase_wide(tmp, paths, genome)
+        wide_shapes = phase_wide_shapes(wide_recorded)
+        emit(wide_shapes)
+        del wide_recorded
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
@@ -1357,7 +1644,10 @@ def main() -> int:
     # three shapes (phase_nthash_shapes) and launches x (ms - bound_ms)
     # over every shape of the main run
     kern.update(shapes=nthash_shapes, gap_ms_main_run=nthash_gap,
-                gap_ms_pe_run=pe_shapes["gap_ms"])
+                gap_ms_pe_run=pe_shapes["gap_ms"],
+                gap_ms_wide_run=wide_shapes["gap_ms"],
+                launches_exact_pe=exact_row["launches"]["nthash"],
+                launches_wide=wide_row["launches"]["nthash"])
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=path["launches"][name],
@@ -1365,7 +1655,9 @@ def main() -> int:
         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
         bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
         **{n: rec[n] for n in ("flush_ms", "shapes", "gap_ms_main_run",
-                               "gap_ms_pe_run") if n in rec},
+                               "gap_ms_pe_run", "gap_ms_wide_run",
+                               "launches_exact_pe", "launches_wide")
+           if n in rec},
         **({"launches_pe": pe_row["launches"][name]}
            if name in ("nthash", "walk", "branch") else {}))
         for name, source, replaces, path, rec in (

@@ -434,3 +434,94 @@ def test_rmer_filter_on_card_matches_cpu(cuda):
         _, _, c, v = nthash.kmer_hashes(win.to(dev), 91)
         hits.append(f.contains(c, v)[:, 0].cpu())
     assert torch.equal(*hits) and hits[0].any()
+
+
+def exact_reads(seed=3, n=800, L=150, glen=4000, err=0.004):
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, glen).astype(np.uint8)
+    reads = []
+    for _ in range(n):
+        p = rng.integers(0, glen - L)
+        r = g[p:p + L].copy()
+        bad = rng.random(L) < err
+        r[bad] = (r[bad] + rng.integers(1, 4, bad.sum())) % 4
+        reads.append(3 - r[::-1] if rng.random() < 0.5 else r)
+    return np.array(reads, np.uint8)
+
+
+@pytest.mark.parametrize("k", [21, 40, 96])
+def test_kmer_hashes_alt_on_card_matches_cpu(cuda, k):
+    codes = torch.from_numpy(exact_reads(k, n=64))
+    want = nthash.kmer_hashes_alt(codes, k)
+    got = nthash.kmer_hashes_alt(codes.to(cuda), k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k,strand", [(25, True), (31, True), (32, True),
+                                      (64, False), (96, True)])
+def test_exact_engine_on_card_matches_cpu(cuda, k, strand):
+    """count (the wide path through the ntHash kernel), adjacency,
+    erode, trim, the low-coverage loop, bubbles and emission on the
+    card: every table array and every contig equal to the CPU's."""
+    from abyss_tpu_torch.dbg import hash_dbg
+    reads = exact_reads(k)
+    batches = [reads[:300], reads[300:]]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        launched = kernels.launches["nthash"]
+        bubbles = []
+        contigs, t = hash_dbg.assemble_reads(
+            batches, k, kc=2, erode_cov=None, erode_strand=None,
+            auto_params=True, min_mean_cov=None, bubbles_out=bubbles,
+            device=dev)
+        if dev == "cuda":
+            assert (kernels.launches["nthash"] > launched) == (k > 32)
+        out[dev] = (contigs, bubbles, [
+            None if getattr(t, n) is None else np.asarray(getattr(t, n))
+            for n in ("kmers", "counts", "alive", "nbr", "hr", "text",
+                      "fwd_counts", "cs")])
+    assert out["cuda"][:2] == out["cpu"][:2]
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    assert len(out["cpu"][0]) > 0
+
+
+def test_chain_programs_on_card_match_cpu(cuda):
+    """_full_rank on chains and cycles, and the trim / erode rounds and
+    the chain sort of a real table, on the card and on the CPU."""
+    from abyss_tpu_torch.dbg import chain_ops, hash_dbg
+    # chains and cycles of several lengths over a random permutation
+    rng = np.random.default_rng(1)
+    perm = rng.permutation(3000)
+    nxt = np.full(3000, -1, np.int64)
+    ends = np.cumsum(rng.choice([2, 3, 7, 40, 300], 200))
+    for a, b in zip(np.concatenate([[0], ends]), ends[ends <= 3000]):
+        seg = perm[a:b]
+        nxt[seg[:-1]] = seg[1:]
+        if rng.random() < 0.4:
+            nxt[seg[-1]] = seg[0]
+    nxt = torch.from_numpy(nxt)
+    for a, b in zip(chain_ops._full_rank(nxt.to(cuda)),
+                    chain_ops._full_rank(nxt)):
+        assert torch.equal(a.cpu(), b)
+    t = hash_dbg.count_kmers([exact_reads(5)], 25, device="cpu")
+    hash_dbg.apply_coverage_threshold(t, 2)
+    hash_dbg.compact(t)
+    hash_dbg.build_adjacency(t)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t.device = dev
+        d = chain_ops.DeviceDBG(t)
+        nxt = d._nxt()
+        outdeg, indeg = d._deg_ov()
+        weak = d.counts_d < 4
+        ov_s, start, cnt = chain_ops._chains_sorted_dev(nxt, d.alive_d)
+        a = int(cnt)
+        res[dev] = [x.cpu() for x in (
+            nxt, *chain_ops._trim_round_impl(nxt, outdeg, indeg, d.alive_d,
+                                             d.counts_d, 25, 5),
+            *chain_ops._erode_round_impl(nxt, indeg, d.alive_d, weak),
+            ov_s[:a], start[:a])]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(a, b)

@@ -219,9 +219,7 @@ def test_cli_resumes_and_prints_stats(runs, tmp_path, capsys, monkeypatch):
 
 
 UNPORTED = {
-    "exact": dict(engine="exact"), "K": dict(K=15),
-    "np": dict(np_devices=2), "nh": dict(n_hosts=2), "cs": dict(cs=True),
-    "lr": dict(lr_files=["lr.fq"]), "long": dict(long_files=["long.fa"]),
+    "K": dict(K=15), "np": dict(np_devices=2), "nh": dict(n_hosts=2),
     "sealer": dict(sealer_ks=[25])}
 
 
@@ -236,17 +234,70 @@ def test_unported_branch_raises(tmp_path, branch):
     assert not os.path.exists(tmp_path / "out")
 
 
-def test_colour_space_input_raises(tmp_path):
-    """Colour-space reads (an anchor base, then colours) are detected as
-    the JAX package detects them, and refused."""
-    reads = [str(tmp_path / "cs.fa")]
-    with open(reads[0], "w") as f:
-        f.write(">r1\nT0123012301230123012301\n")
-    p = tpe.PipelineParams(name="c", k=15, in_files=reads,
-                           outdir=str(tmp_path / "out"), device="cpu")
-    with pytest.raises(NotImplementedError, match="colour-space"):
-        tpe.run(p)
-    assert p.cs is True
+# the exact engine runs no RResolver (bin/abyss-pe's `ifdef B`)
+EXACT_ARTIFACTS = [n for n in ARTIFACTS if "-1-rr." not in n]
+
+
+@pytest.fixture(scope="module")
+def exact_runs(runs, tmp_path_factory):
+    """(JAX outdir, port outdir) of pe engine=exact on the module's
+    reads."""
+    reads, _, _ = runs
+    base = tmp_path_factory.mktemp("exact")
+    jdir, tdir = base / "jax", base / "port"
+    jpe.run(params(jpe, jdir, reads, engine="exact"))
+    tpe.run(params(tpe, tdir, reads, engine="exact"))
+    # the exact engine's unitigs are its own, not the bloom engine's
+    assert read(jdir / f"{NAME}-1.fa") != read(runs[1] / f"{NAME}-1.fa")
+    return jdir, tdir
+
+
+@pytest.mark.parametrize("name", EXACT_ARTIFACTS + LINKS)
+def test_exact_engine_matches_jax(exact_runs, name):
+    jdir, tdir = exact_runs
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir)) == \
+        sorted(EXACT_ARTIFACTS + LINKS)
+    if name in LINKS:
+        assert os.readlink(tdir / name) == os.readlink(jdir / name)
+    else:
+        assert read(tdir / name) == read(jdir / name)
+
+
+def resumed_after_8(mod, runs, outdir, **kw):
+    """`mod`'s pe with `kw`, resumed from the JAX bloom run's files
+    (stages 1-8 done), so that only stage 10 and the stats run."""
+    reads, jdir, _ = runs
+    os.makedirs(outdir)
+    for name in ARTIFACTS:
+        shutil.copy(jdir / name, outdir / name)
+    mod.run(params(mod, outdir, reads, **kw))
+    return {n: read(outdir / n) for n in sorted(os.listdir(outdir))
+            if not os.path.islink(outdir / n)}
+
+
+@pytest.mark.parametrize("branch", ["long", "lr"])
+def test_rescaffolding_matches_jax(runs, tmp_path, branch):
+    """long= (both mate files as long reads) and lr= (the reads as
+    linked reads) after stage 8: name-10.fa and the stats equal."""
+    reads = runs[0]
+    kw = {"long": dict(long_files=list(reads)),
+          "lr": dict(lr_files=list(reads))}[branch]
+    want = resumed_after_8(jpe, runs, tmp_path / "jax", **kw)
+    got = resumed_after_8(tpe, runs, tmp_path / "port", **kw)
+    assert got == want
+    assert want[f"{NAME}-10.fa"].count(b">") > 0
+    assert b"rescaffolds" in want[f"{NAME}-stats.tab"]
+
+
+def test_long_on_unpaired_reads_raises_as_jax(runs, tmp_path):
+    """long= with one mate file (no pairs): DistanceEst fits no fragment
+    PMF and both packages raise ZeroDivisionError (a fault of the JAX
+    package, reproduced)."""
+    reads = runs[0]
+    for mod, tag in ((jpe, "jax"), (tpe, "port")):
+        with pytest.raises(ZeroDivisionError):
+            resumed_after_8(mod, runs, tmp_path / tag,
+                            long_files=[reads[0]])
 
 
 def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
