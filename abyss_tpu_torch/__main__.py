@@ -12,6 +12,15 @@ TOOLS = {
                  "abyss_tpu_torch.cli.tools", "assemble_main"),
     "bloom-dbg": ("Bloom-filter de Bruijn graph assembler",
                   "abyss_tpu_torch.cli.tools", "bloom_dbg_main"),
+    "paired-dbg": ("paired de Bruijn graph assembler (abyss-paired-dbg; "
+                   "-k pair span, -K single k-mer, --device cuda|cpu)",
+                   "abyss_tpu_torch.cli.tools2", "paireddbg_main"),
+    "konnector": ("merge read pairs through the DBG into pseudo-long "
+                  "reads (--device cuda|cpu)",
+                  "abyss_tpu_torch.cli.tools", "konnector_main"),
+    "sealer": ("close scaffold N-gaps with Konnector (abyss-sealer, "
+               "--device cuda|cpu)", "abyss_tpu_torch.cli.tools",
+               "sealer_main"),
     "bloom": ("Bloom filter utility (abyss-bloom: build/union/"
               "intersect/info/compare/kmers/trim/graph)",
               "abyss_tpu_torch.cli.bloom_tool", "main"),

@@ -1,7 +1,8 @@
 """CLI entry points of the port (mirrors abyss_tpu/cli/tools.py).
 
-Ported so far: abyss-bloom-dbg and ABYSS (the exact hash-DBG
-assembler, `assemble`); abyss-bloom is cli/bloom_tool.py.
+Ported so far: abyss-bloom-dbg, ABYSS (the exact hash-DBG assembler,
+`assemble`), konnector and abyss-sealer; abyss-bloom is
+cli/bloom_tool.py, abyss-paired-dbg cli/tools2.py.
 """
 
 from __future__ import annotations
@@ -155,6 +156,191 @@ def assemble_main(argv=None):
         db.add("contigs", len(contigs))
         db.add("kmers", n_total)
         db.add("kmers_assembled", n_assembled)
+
+
+def konnector_main(argv=None):
+    """konnector equivalent (Konnector/konnector.cc): merge read pairs
+    through the DBG into pseudo-long reads with the bidirectional engine
+    (gap/konnector.connect_pairs_full), the reference's option surface
+    and per-outcome stats block; on the GPU by default (--device
+    cuda|cpu)."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch konnector")
+    ap.add_argument("reads1")
+    ap.add_argument("reads2")
+    ap.add_argument("-k", "--kmer", type=int, required=True)
+    ap.add_argument("-b", "--bloom-size", default="64M")
+    ap.add_argument("-f", "--min-frag", type=int, default=0)
+    ap.add_argument("-F", "--max-frag", type=int, default=1000)
+    ap.add_argument("-P", "--max-paths", type=int, default=2)
+    ap.add_argument("-B", "--max-branches", type=int, default=0,
+                    help="frontier cap; 0 = nolimit (deprecated)")
+    ap.add_argument("-C", "--max-cost", type=int, default=25000)
+    ap.add_argument("-M", "--max-mismatches", type=int, default=2)
+    ap.add_argument("-m", "--read-mismatches", type=int, default=0,
+                    help="max read/path mismatches; 0 = nolimit")
+    ap.add_argument("-x", "--read-identity", type=float, default=0.0)
+    ap.add_argument("-X", "--path-identity", type=float, default=0.0)
+    ap.add_argument("--mask", action="store_true",
+                    help="lowercase new/changed bases")
+    ap.add_argument("--preserve-reads", action="store_true")
+    ap.add_argument("-D", "--dup-bloom-size", default="0",
+                    help="dup-avoidance Bloom size (with --extend)")
+    ap.add_argument("-q", "--trim-quality", type=int, default=0)
+    ap.add_argument("-t", "--trace-file", default=None)
+    ap.add_argument("--extend", action="store_true",
+                    help="extend connected reads outward through the DBG")
+    ap.add_argument("--cascade", type=int, default=0, metavar="L",
+                    help="use an L-level cascading Bloom filter for "
+                         "solidity (the reference konnector's "
+                         "CascadingBloomFilter, Konnector/konnector.cc; "
+                         "solid = seen >= L times)")
+    ap.add_argument("-o", "--output-prefix", required=True)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="device to run on [cuda]")
+    args = ap.parse_args(argv)
+
+    import os
+
+    import torch
+
+    from .. import resolve_device
+    from ..dbg import bloom_dbg
+    from ..dbg.params import AssemblyParams
+    from ..gap import konnector
+    from ..io import fastx
+    from ..io import read_batches as io_read_batches
+    params = AssemblyParams(k=args.kmer,
+                            bloom_bytes=parse_size(args.bloom_size),
+                            min_cov=1)
+    dev = resolve_device(args.device)
+    if args.cascade >= 2:
+        # solid = seen >= L times.  The reference implements this with
+        # an L-level CascadingBloomFilter (Konnector/konnector.cc); the
+        # default here is the exact sorted counter at threshold L
+        # (the cascade's decisions minus its false positives, and it
+        # feeds the device BFS of gap/konnector_dev; the cascade takes
+        # the host engine).  ABYSS_TPU_KONN_FILTER=cascade restores the
+        # Bloom cascade.
+        from ..ops import nthash
+        if os.environ.get("ABYSS_TPU_KONN_FILTER") == "cascade":
+            from ..ops.bloom import CascadingBloomFilter
+            size = 1 << (max(parse_size(args.bloom_size) // args.cascade,
+                             2).bit_length() - 1)
+            cbf = CascadingBloomFilter.create(size, args.kmer,
+                                              depth=args.cascade, device=dev)
+            for batch in io_read_batches([args.reads1, args.reads2],
+                                         4096, 512):
+                _, _, canon, valid = nthash.kmer_hashes(
+                    torch.from_numpy(batch.codes).to(dev), args.kmer)
+                cbf = cbf.insert(canon, valid)
+        else:
+            from ..ops.sorted_filter import SortedKmerCounter
+            ctr = SortedKmerCounter(args.kmer, threshold=args.cascade)
+            for batch in io_read_batches([args.reads1, args.reads2],
+                                         4096, 512):
+                _, _, canon, valid = nthash.kmer_hashes(
+                    torch.from_numpy(batch.codes).to(dev), args.kmer)
+                ctr.add(canon, valid)
+            cbf = ctr.finalize(dev)
+    else:
+        cbf = bloom_dbg.load_filter(
+            io_read_batches([args.reads1, args.reads2], 4096, 512), params,
+            device=dev)
+    r1 = list(fastx.read_fastx(args.reads1))
+    r2 = list(fastx.read_fastx(args.reads2))
+    if args.trim_quality > 0:
+        for rec in list(r1) + list(r2):
+            if rec.qual:
+                s, q = fastx.trim_quality(rec.seq, rec.qual,
+                                          args.trim_quality)
+                rec.seq, rec.qual = s, q
+    pairs = [(a.seq, b.seq) for a, b in zip(r1, r2)]
+    NL = konnector.NO_LIMIT
+    kp = konnector.ConnectPairsParams(
+        max_paths=args.max_paths, min_frag=args.min_frag,
+        max_frag=args.max_frag,
+        max_branches=args.max_branches or NL,
+        max_cost=args.max_cost,
+        max_path_mismatches=args.max_mismatches,
+        min_path_identity=args.path_identity,
+        max_read_mismatches=args.read_mismatches or NL,
+        min_read_identity=args.read_identity,
+        mask=args.mask, preserve_reads=args.preserve_reads)
+    stats = konnector.ConnectStats()
+    results = konnector.connect_pairs_full(cbf, pairs, args.kmer, kp,
+                                           stats=stats)
+    if args.trace_file:
+        # per-pair search stats (ConnectPairsResult::printHeaders)
+        with open(args.trace_file, "w") as tf:
+            tf.write("k\tread_id\tsearch_result\tnum_paths\t"
+                     "start_kmer_pos\tend_kmer_pos\n")
+            for a, res in zip(r1, results):
+                label = {"NO_KMER": "NO_PATH",
+                         "MISMATCH": "FOUND_PATH",
+                         "READ_MISMATCH": "FOUND_PATH"}.get(
+                             res.reason, res.reason)
+                prefix = a.id.rsplit("/", 1)[0]
+                tf.write(f"{args.kmer}\t{prefix}\t{label}\t"
+                         f"{res.num_paths}\t{res.start_pos}\t"
+                         f"{res.goal_pos}\n")
+    merged_ok = [res.reason == "FOUND_PATH" for res in results]
+    if args.extend:
+        dup = None
+        if parse_size(args.dup_bloom_size):
+            dup = konnector.DupFilter(parse_size(args.dup_bloom_size) * 8,
+                                      args.kmer, device=dev)
+        merged_seqs = [res.seq if ok else None
+                       for ok, res in zip(merged_ok, results)]
+        extended = konnector.extend_outward(cbf, merged_seqs, args.kmer)
+        for j, (res, seq) in enumerate(zip(results, extended)):
+            if merged_ok[j]:
+                if dup is not None and dup.redundant_or_add(cbf, seq):
+                    merged_ok[j] = False   # assembled already; skip
+                else:
+                    res.seq = seq
+    n_merged = 0
+    with open(args.output_prefix + "_merged.fa", "w") as fm, \
+            open(args.output_prefix + "_reads_1.fq", "w") as f1, \
+            open(args.output_prefix + "_reads_2.fq", "w") as f2:
+        for a, b, res, ok in zip(r1, r2, results, merged_ok):
+            if ok:
+                fm.write(f">{a.id.rsplit('/', 1)[0]}\n{res.seq}\n")
+                n_merged += 1
+            else:
+                q1 = a.qual or "I" * len(a.seq)
+                q2 = b.qual or "I" * len(b.seq)
+                f1.write(f"@{a.id}\n{a.seq}\n+\n{q1}\n")
+                f2.write(f"@{b.id}\n{b.seq}\n+\n{q2}\n")
+    print(stats.summary(), file=sys.stderr)
+
+
+def sealer_main(argv=None):
+    """abyss-sealer equivalent (Sealer/sealer.cc), on the GPU by default
+    (--device cuda|cpu)."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch sealer")
+    ap.add_argument("reads", nargs="+")
+    ap.add_argument("-S", "--input-scaffold", required=True)
+    ap.add_argument("-k", "--kmer", type=int, action="append",
+                    required=True, help="k value(s), may repeat")
+    ap.add_argument("-b", "--bloom-size", default="64M")
+    ap.add_argument("-F", "--flank", type=int, default=100)
+    ap.add_argument("-G", "--max-gap", type=int, default=800)
+    ap.add_argument("-o", "--output-prefix", required=True)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="device to run on [cuda]")
+    args = ap.parse_args(argv)
+
+    from .. import resolve_device
+    from ..gap import sealer
+    from ..io import fastx
+    scaffolds = [(r.id, r.seq)
+                 for r in fastx.read_fastx(args.input_scaffold)]
+    sealed, stats = sealer.seal(
+        scaffolds, args.reads, ks=args.kmer,
+        bloom_bytes=parse_size(args.bloom_size), flank=args.flank,
+        max_gap=args.max_gap, device=resolve_device(args.device))
+    fastx.write_fasta(args.output_prefix + "_scaffold.fa", sealed)
+    print(f"closed {stats.closed} of {stats.gaps} gaps", file=sys.stderr)
 
 
 def parse_size(s: str) -> int:

@@ -16,7 +16,10 @@ filter (`bit_filter_from_numpy`).  The exact engine's state is its
 k-mer table (`kmer_table_from_numpy`); its `.kmer` snapshots are the
 JAX package's `.npz` layout (keys k, kmers, counts, alive, nbr, hr,
 text), which `dbg.hash_dbg.load_snapshot` and `save_snapshot` of
-either package read and write.  The pipeline's own state between stages
+either package read and write; the paired DBG's is its pair table
+(`pair_table_from_numpy`).  The Konnector device search takes the
+sorted filter (`from_numpy_state`) and host numpy arrays, the same in
+both packages.  The pipeline's own state between stages
 is its artifact files, which both packages read.
 """
 
@@ -28,6 +31,7 @@ import torch
 from . import resolve_device, u64
 from .align.mapper import KmerIndex
 from .dbg.hash_dbg import KmerTable
+from .dbg.paired_dbg import PairTable
 from .ops.bloom import BitBloomFilter, CountingBloomFilter
 from .ops.sort_join import pack_table
 from .ops.sorted_filter import SortedKmerFilter
@@ -115,3 +119,21 @@ def kmer_table_from_numpy(k: int, kmers: np.ndarray, counts: np.ndarray,
                      text=opt(text, np.uint8),
                      fwd_counts=opt(fwd_counts, np.int32),
                      cs=opt(cs, np.uint64), device=str(device))
+
+
+def pair_table_from_numpy(k: int, K: int, keys: np.ndarray,
+                          counts: np.ndarray, alive: np.ndarray,
+                          fa: np.ndarray, ra: np.ndarray, fb: np.ndarray,
+                          rb: np.ndarray, text: np.ndarray,
+                          device="cuda") -> PairTable:
+    """The paired DBG's wide-mode PairTable (host arrays, as the JAX
+    package keeps them), its device programs to run on `device`."""
+    resolve_device(device)
+
+    def u(a):
+        return np.asarray(a, np.uint64).copy()
+
+    return PairTable(k, K, u(keys), np.asarray(counts, np.int32).copy(),
+                     np.asarray(alive, bool).copy(), u(fa), u(ra), u(fb),
+                     u(rb), np.asarray(text, np.uint8).copy(),
+                     device=str(device))

@@ -76,6 +76,12 @@ walk::BloomSolid bloom_solid(const uint8_t* counters, int64_t size,
                             threshold};
 }
 
+walk::CascadeSolid cascade_solid(const uint8_t* levels, int64_t size,
+                                 int hash_k, int num_hashes, int depth) {
+    return walk::CascadeSolid{levels, uint64_t(size - 1), size + 1, hash_k,
+                              num_hashes, depth};
+}
+
 // walk.cu branch_kernel: each root searched by a group of members, the
 // host thread playing each in turn, its frontier in a buffer of the
 // kernel's layout.
@@ -172,6 +178,30 @@ extern "C" void walk_bloom_host(uint8_t* buf, int64_t P, int64_t BUF,
     walk_loop(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
               bloom_solid(counters, size, hash_k, num_hashes, threshold), k,
               max_steps);
+}
+
+// walk_host on a cascading Bloom filter (walk.cu walk_cascade_launch).
+extern "C" void walk_cascade_host(uint8_t* buf, int64_t P, int64_t BUF,
+                                  int64_t* length, uint64_t* f, uint64_t* r,
+                                  int8_t* status, const uint64_t* seed_canon,
+                                  uint8_t* has_prev, const uint8_t* levels,
+                                  int64_t size, int hash_k, int num_hashes,
+                                  int depth, int k, int64_t max_steps) {
+    walk_loop(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+              cascade_solid(levels, size, hash_k, num_hashes, depth), k,
+              max_steps);
+}
+
+// branch_host on a cascading Bloom filter (walk.cu branch_cascade_launch).
+extern "C" void branch_cascade_host(const uint8_t* roots, int64_t N, int k,
+                                    const uint64_t* f0, const uint64_t* r0,
+                                    const uint8_t* levels, int64_t size,
+                                    int hash_k, int num_hashes, int depth,
+                                    int max_depth, int W, int H,
+                                    int32_t* depth_out, int64_t* probes) {
+    branch_loop(roots, N, k, f0, r0,
+                cascade_solid(levels, size, hash_k, num_hashes, depth),
+                max_depth, W, H, depth_out, probes);
 }
 
 // scatter_max.cu: every update in order, one at a time.

@@ -13,11 +13,13 @@
 // whole loop in one launch.  Lanes and roots are independent, so a
 // group each gives the lock-step result exactly.
 //
-// Each kernel comes in two variants of its solidity test (walk.cuh):
-// the walk table of the sorted filter (walk_launch, branch_launch) and
-// the counting Bloom filter (walk_bloom_launch, branch_bloom_launch),
-// where a test reads H counters at hashed places instead of one 64-byte
-// table window.
+// Each kernel comes in three variants of its solidity test (walk.cuh):
+// the walk table of the sorted filter (walk_launch, branch_launch), the
+// counting Bloom filter (walk_bloom_launch, branch_bloom_launch), where
+// a test reads H counters at hashed places instead of one 64-byte table
+// window, and the cascading Bloom filter of `konnector --cascade`
+// (walk_cascade_launch, branch_cascade_launch), where it reads H bytes
+// in each of the cascade's L levels.
 //
 // What bounds them: the latency of chains of dependent random probes,
 // not bytes.  A walk step tests 8 candidates at random places in a table
@@ -164,6 +166,12 @@ walk::BloomSolid bloom_solid(const uint8_t* counters, int64_t size,
                             threshold};
 }
 
+walk::CascadeSolid cascade_solid(const uint8_t* levels, int64_t size,
+                                 int hash_k, int num_hashes, int depth) {
+    return walk::CascadeSolid{levels, uint64_t(size - 1), size + 1, hash_k,
+                              num_hashes, depth};
+}
+
 int64_t scratch_bytes(int W, int H, int k) {
     const int64_t bytes = walk::frontier_bytes(W, H, k);
     return ROOTS_PER_BLOCK * bytes <= SHARED_BYTES ? 0 : bytes;
@@ -252,6 +260,20 @@ extern "C" int walk_bloom_launch(uint8_t* buf, int64_t P, int64_t BUF,
                     k, max_steps, stream);
 }
 
+// walk_launch on a cascading Bloom filter: levels uint8 [depth, size +
+// 1], size a power of two; hash_k and num_hashes are the filter's.
+extern "C" int walk_cascade_launch(uint8_t* buf, int64_t P, int64_t BUF,
+                                   int64_t* length, int64_t* f, int64_t* r,
+                                   int8_t* status, const int64_t* seed_canon,
+                                   bool* has_prev, const uint8_t* levels,
+                                   int64_t size, int hash_k, int num_hashes,
+                                   int depth, int k, int64_t max_steps,
+                                   void* stream) {
+    return walk_run(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+                    cascade_solid(levels, size, hash_k, num_hashes, depth),
+                    k, max_steps, stream);
+}
+
 // roots: uint8 [N, k]; f0/r0: int64 [N]; tab: int64 [size + 8]; H =
 // max_depth - k if positive, else 0; scratch: uint8 [N *
 // branch_scratch_bytes(W, H, k)], null when that is 0; depth: int32 [N];
@@ -278,4 +300,17 @@ extern "C" int branch_bloom_launch(const uint8_t* roots, int64_t N, int k,
                       bloom_solid(counters, size, hash_k, num_hashes,
                                   threshold),
                       max_depth, W, H, scratch, depth, probes, stream);
+}
+
+// branch_launch on a cascading Bloom filter (see walk_cascade_launch).
+extern "C" int branch_cascade_launch(const uint8_t* roots, int64_t N, int k,
+                                     const int64_t* f0, const int64_t* r0,
+                                     const uint8_t* levels, int64_t size,
+                                     int hash_k, int num_hashes, int depth,
+                                     int max_depth, int W, int H,
+                                     uint8_t* scratch, int32_t* depth_out,
+                                     int64_t* probes, void* stream) {
+    return branch_run(roots, N, k, f0, r0,
+                      cascade_solid(levels, size, hash_k, num_hashes, depth),
+                      max_depth, W, H, scratch, depth_out, probes, stream);
 }

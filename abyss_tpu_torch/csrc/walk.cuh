@@ -170,6 +170,41 @@ struct BloomSolid {
     }
 };
 
+// Solid = held in every level of a cascading Bloom filter, as
+// CascadingBloomFilter.contains tests it: a key's level is the number of
+// consecutive levels from the bottom whose H bytes at nte64(q, k, i) &
+// mask, i < H, are all set, and it is solid when that reaches the
+// depth L, that is when all L x H bytes are set.  Level l starts at
+// levels + l * stride (stride = size + 1, the sink included).  The bytes
+// are loaded BLOOM_BATCH hashes a level at a time, with no early exit.
+struct CascadeSolid {
+    const uint8_t* levels;  // [depth, size + 1]
+    uint64_t mask;          // size - 1
+    int64_t stride;         // size + 1
+    int k;                  // the filter's k, which seeds its extra hashes
+    int num_hashes;
+    int depth;
+    NT_HD bool operator()(uint64_t q) const {
+        bool ok = true;
+        for (int i0 = 0; i0 < num_hashes; i0 += BLOOM_BATCH) {
+            uint64_t h[BLOOM_BATCH];
+            for (int j = 0; j < BLOOM_BATCH; ++j) {
+                const int i = i0 + j;
+                h[j] = (i == 0 ? q : nthash::nte64(q, k, i)) & mask;
+            }
+            for (int l = 0; l < depth; ++l) {
+                const uint8_t* level = levels + l * stride;
+                int c[BLOOM_BATCH];
+                for (int j = 0; j < BLOOM_BATCH; ++j)
+                    c[j] = i0 + j < num_hashes ? int(WALK_LDG(level + h[j]))
+                                               : 1;
+                for (int j = 0; j < BLOOM_BATCH; ++j) ok &= c[j] > 0;
+            }
+        }
+        return ok;
+    }
+};
+
 struct Lane {
     int64_t length;   // bases in buf
     uint64_t f, r;    // forward / reverse hash of the head k-mer

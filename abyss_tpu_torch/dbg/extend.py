@@ -43,7 +43,7 @@ from .. import u64
 from ..core import alphabet
 from ..ops import hash_probe as hp
 from ..ops import kernels, nthash
-from ..ops.bloom import CountingBloomFilter
+from ..ops.bloom import CascadingBloomFilter, CountingBloomFilter
 
 # path status codes (superset of PathExtensionResultCode, ExtendPath.h:47-57)
 ACTIVE = 0
@@ -207,11 +207,11 @@ def fast_extend(cbf, st: ExtendState, k: int,
     On a CUDA device this is one launch of the walk kernel
     (csrc/walk.cu, a group of 8 threads per lane, one per candidate of a
     step, updating the state in place; the walk filter must be
-    ext.walk_filter's ProbeSet or a CountingBloomFilter).  On the CPU it
-    is the plain loop of `_step`, run until no lane is ACTIVE or
-    max_steps steps have run; the condition is tested after 1, 2, 4, ...
-    CHECK_MAX steps (extra steps are no-ops on non-ACTIVE lanes).  Both
-    update st.buf in place."""
+    ext.walk_filter's ProbeSet, a CountingBloomFilter or a
+    CascadingBloomFilter).  On the CPU it is the plain loop of `_step`,
+    run until no lane is ACTIVE or max_steps steps have run; the
+    condition is tested after 1, 2, 4, ... CHECK_MAX steps (extra steps
+    are no-ops on non-ACTIVE lanes).  Both update st.buf in place."""
     if st.buf.is_cuda:
         kernels.walk(_kernel_solid("fast_extend", cbf), st.buf, st.length,
                      st.f, st.r, st.status, st.seed_canon, st.has_prev, k,
@@ -222,14 +222,15 @@ def fast_extend(cbf, st: ExtendState, k: int,
 
 def _kernel_solid(fn: str, cbf):
     """What the walk kernels probe for walk filter `cbf`: a ProbeSet's
-    table or a CountingBloomFilter; raises for anything else."""
+    table, a CountingBloomFilter or a CascadingBloomFilter; raises for
+    anything else."""
     if isinstance(cbf, hp.ProbeSet):
         return cbf.tab
-    if isinstance(cbf, CountingBloomFilter):
+    if isinstance(cbf, (CountingBloomFilter, CascadingBloomFilter)):
         return cbf
     raise TypeError(f"{fn} on a CUDA device probes a ProbeSet "
-                    "(ext.walk_filter) or a CountingBloomFilter, got "
-                    f"{type(cbf).__name__}")
+                    "(ext.walk_filter), a CountingBloomFilter or a "
+                    f"CascadingBloomFilter, got {type(cbf).__name__}")
 
 
 def fast_extend_plain(cbf, st: ExtendState, k: int,
@@ -262,7 +263,8 @@ def branch_depths(cbf, root_codes: torch.Tensor, root_hashes, k: int,
     Returns int32[N].  On a CUDA device this is one launch of the branch
     kernel (csrc/walk.cu, a warp per root, a thread per child of up to
     8 frontier k-mers at once; the walk filter must be ext.walk_filter's
-    ProbeSet or a CountingBloomFilter); on the CPU, branch_depths_plain."""
+    ProbeSet, a CountingBloomFilter or a CascadingBloomFilter); on the
+    CPU, branch_depths_plain."""
     f0, r0 = root_hashes
     if f0.is_cuda:
         return kernels.branch(_kernel_solid("branch_depths", cbf),

@@ -1,13 +1,20 @@
-"""Open-addressing hash table for set membership inside the walk loops.
+"""Open-addressing hash tables for set membership and key -> value maps.
 
-Port of the parts of abyss_tpu/ops/hash_probe.py that the Bloom-DBG
-walks use.  The table is built on the host (numpy, as in the JAX
-package) and probed on the device: one [C, B] gather of B contiguous
-slots per query batch, which suits the small per-step query batches of
-the extension engine better than a searchsorted over the sorted filter.
+Port of abyss_tpu/ops/hash_probe.py: the membership table of the
+Bloom-DBG walks and the key -> int32 tables of the Konnector device
+BFS (gap/konnector_dev.py).  Tables are built on the host (numpy, as in
+the JAX package) and probed and grown on the device: one [C, B] gather
+of B contiguous slots per query batch, which suits small per-level
+query batches better than a searchsorted over a sorted store.
 
 Collision policy: the table stores full 64-bit keys; a probe hit is a
 64-bit match.  EMPTY (all-ones, -1 as int64) is reserved.
+
+`insert` resolves lanes that race for one slot as XLA's scatter does on
+the CPU: the write of the highest lane wins.  torch's CUDA index_put_
+makes no such promise, so the winner is chosen explicitly (a running
+maximum of lane positions per slot) and every racer writes the winner's
+value, which makes the result the same on every device.
 """
 
 from __future__ import annotations
@@ -87,6 +94,36 @@ def contains(tab: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return (got == queries[:, None]).any(dim=1)
 
 
+def build_kv(keys: np.ndarray, vals: np.ndarray,
+             size: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side build of a key->int32 value table:
+    (uint64[size + B] keys, int32[size + B] values, -1 where empty)."""
+    keys = np.asarray(keys, np.uint64)
+    vals = np.asarray(vals, np.int32)
+    if size is None:
+        size = table_size(len(keys))
+    while True:
+        tab = np.full(size + B, EMPTY, np.uint64)
+        vtab = np.full(size + B, -1, np.int32)
+        live = keys != EMPTY
+        remaining, rvals = keys[live], vals[live]
+        base = (_mix_np(remaining) & np.uint64(size - 1)).astype(np.int64)
+        for b in range(B):
+            if not len(remaining):
+                break
+            cand = base + b
+            uniq, first = np.unique(cand, return_index=True)
+            free = tab[uniq] == EMPTY
+            tab[uniq[free]] = remaining[first[free]]
+            vtab[uniq[free]] = rvals[first[free]]
+            placed = tab[cand] == remaining
+            remaining, rvals = remaining[~placed], rvals[~placed]
+            base = base[~placed]
+        if not len(remaining):
+            return tab, vtab
+        size *= 2
+
+
 class ProbeSet:
     """A membership table with the filter `contains` API."""
 
@@ -114,3 +151,76 @@ def solid_table(filt) -> torch.Tensor:
         filt.solid_tab = u64.from_numpy(
             build(kmers[counts >= filt.threshold]), filt.kmers.device)
     return filt.solid_tab
+
+
+def _window(tab: torch.Tensor, queries: torch.Tensor):
+    """(base slot, [C, B] hit mask) of each query's probe window."""
+    size = tab.shape[0] - B
+    base = mix64(queries) & (size - 1)
+    idx = base[:, None] + torch.arange(B, device=tab.device)[None, :]
+    return base, tab[idx] == queries[:, None]
+
+
+def lookup_slot(tab: torch.Tensor, vtab: torch.Tensor,
+                queries: torch.Tensor):
+    """Device key->value probe: (found bool[C], val int32[C] or -1, slot
+    int64[C]), the slot of the FIRST matching window position (the base
+    slot where not found).  Callers verify the payload exactly."""
+    base, hit = _window(tab, queries)
+    found = hit.any(dim=1)
+    # argmax returns the first maximum, as jnp.argmax does
+    slot = base + hit.to(torch.uint8).argmax(dim=1)
+    val = torch.where(found, vtab[slot], -1)
+    return found, val, slot
+
+
+def lookup(tab: torch.Tensor, vtab: torch.Tensor, queries: torch.Tensor):
+    """Device key->value probe: (found bool[C], val int32[C] or -1)."""
+    found, val, _ = lookup_slot(tab, vtab, queries)
+    return found, val
+
+
+def set_last(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+             write: torch.Tensor) -> torch.Tensor:
+    """dst[idx[j]] = vals[j] for every j with write[j], in place; where
+    several lanes write one slot the highest j wins (XLA's CPU scatter
+    order).  Every lane of a slot writes its winner's value, so the
+    result does not depend on the order the device applies them in."""
+    n = idx.shape[0]
+    if n == 0:
+        return dst
+    sink = dst.shape[0]
+    pos = torch.arange(n, device=dst.device)
+    tgt = torch.where(write, idx, sink)
+    win = torch.full((sink + 1,), -1, dtype=torch.int64, device=dst.device)
+    win.scatter_reduce_(0, tgt, pos, reduce="amax")
+    w0 = win[0]
+    # lanes that do not write put slot 0's final value back into slot 0
+    v0 = torch.where(w0 >= 0, vals[w0.clamp(min=0)], dst[0])
+    wv = vals[win[tgt].clamp(min=0)]
+    dst[torch.where(write, idx, 0)] = torch.where(write, wv, v0).to(dst.dtype)
+    return dst
+
+
+def insert(tab: torch.Tensor, vtab: torch.Tensor, keys: torch.Tensor,
+           vals: torch.Tensor, live: torch.Tensor):
+    """Device insert of (keys -> vals) where live: B rounds of
+    attempt-scatter + readback (losing racers retry the next slot).
+
+    Returns (tab, vtab, failed): new tables (the inputs are not
+    written) and the number of live keys that found no free slot in
+    their window, a device scalar.  Concurrent duplicate keys are the
+    caller's responsibility."""
+    tab = tab.clone()
+    vtab = vtab.clone()
+    size = tab.shape[0] - B
+    base = mix64(keys) & (size - 1)
+    placed = ~live
+    for b in range(B):
+        tgt = base + b
+        attempt = ~placed & (tab[tgt] == u64.ALL_ONES)
+        set_last(tab, tgt, keys, attempt)
+        newly = attempt & (tab[tgt] == keys)
+        set_last(vtab, tgt, vals, newly)
+        placed = placed | newly
+    return tab, vtab, (~placed).sum()

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"nthash": 0, "walk": 0, "branch": 0, "walk_bloom": 0,
-            "branch_bloom": 0, "scatter_max": 0}
+            "branch_bloom": 0, "walk_cascade": 0, "branch_cascade": 0,
+            "scatter_max": 0}
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
 
@@ -197,8 +198,11 @@ def _bind_walk(lib: ctypes.CDLL) -> None:
     for name, res, args in (
             ("walk_launch", I, lane + [P, I64, I, I64, P]),
             ("walk_bloom_launch", I, lane + [P, I64, I, I, I, I, I64, P]),
+            ("walk_cascade_launch", I, lane + [P, I64, I, I, I, I, I64, P]),
             ("branch_launch", I, root + [P, I64] + branch_rest),
             ("branch_bloom_launch", I, root + [P, I64, I, I, I] + branch_rest),
+            ("branch_cascade_launch", I,
+             root + [P, I64, I, I, I] + branch_rest),
             ("walk_blocks", I64, [I64, I]), ("branch_blocks", I64, [I64]),
             ("branch_scratch_bytes", I64, [I, I, I])):
         fn = getattr(lib, name)
@@ -239,9 +243,11 @@ def _check(kernel: str, dev: torch.device, args: dict) -> None:
 def _solid(kernel: str, solid, args: dict):
     """The launch arguments and launch-count name of a walk kernel's
     solidity test: `solid` is the walk table (int64 [size + 8], size a
-    power of two, ops/hash_probe.ProbeSet.tab) or a counting Bloom
-    filter (its counters uint8 [size + 1], size a power of two, and its
-    k, num_hashes and threshold).  Adds the array to `args` for _check."""
+    power of two, ops/hash_probe.ProbeSet.tab), a counting Bloom filter
+    (its counters uint8 [size + 1], size a power of two, and its k,
+    num_hashes and threshold) or a cascading Bloom filter (its levels
+    uint8 [depth, size + 1], and its k and num_hashes).  Adds the array
+    to `args` for _check."""
     if isinstance(solid, torch.Tensor):
         size = solid.shape[0] - 8
         if solid.dim() != 1 or size < 1 or size & (size - 1):
@@ -249,17 +255,20 @@ def _solid(kernel: str, solid, args: dict):
                              "a power of two")
         args["tab"] = (solid, torch.int64)
         return [solid.data_ptr(), size], kernel
-    counters = solid.counters
-    size = counters.shape[0] - 1
-    if counters.dim() != 1 or size < 1 or size & (size - 1):
-        raise ValueError(f"{kernel} kernel: counters must be [size + 1], size "
-                         "a power of two")
+    cascade = hasattr(solid, "levels")
+    arr = solid.levels if cascade else solid.counters
+    size = arr.shape[-1] - 1
+    if arr.dim() != (2 if cascade else 1) or size < 1 or size & (size - 1):
+        raise ValueError(f"{kernel} kernel: filter array must be "
+                         f"[{'depth, ' if cascade else ''}size + 1], size a "
+                         "power of two")
+    last = solid.depth if cascade else solid.threshold
     if not (0 < solid.num_hashes < 1 << 16 and 0 <= solid.k < 1 << 16
-            and -(1 << 16) < solid.threshold < 1 << 16):
+            and -(1 << 16) < last < 1 << 16):
         raise ValueError(f"{kernel} kernel: filter parameters out of range")
-    args["counters"] = (counters, torch.uint8)
-    return [counters.data_ptr(), size, solid.k, solid.num_hashes,
-            solid.threshold], kernel + "_bloom"
+    args["levels" if cascade else "counters"] = (arr, torch.uint8)
+    return [arr.data_ptr(), size, solid.k, solid.num_hashes, last], \
+        kernel + ("_cascade" if cascade else "_bloom")
 
 
 def walk(solid, buf: torch.Tensor, length: torch.Tensor,
@@ -270,9 +279,9 @@ def walk(solid, buf: torch.Tensor, length: torch.Tensor,
     (csrc/walk.cu): the same lane states as max_steps lock steps of
     dbg/extend.fast_extend's plain loop.
 
-    solid: the walk table (int64 [size + 8], ops/hash_probe.build) or a
-    CountingBloomFilter (ops/bloom), whose variant counts as
-    launches["walk_bloom"]; buf: uint8 [P, BUF]; length/f/r/seed_canon:
+    solid: the walk table (int64 [size + 8], ops/hash_probe.build), a
+    CountingBloomFilter or a CascadingBloomFilter (ops/bloom), whose
+    variants count as launches["walk_bloom"] and ["walk_cascade"]; buf: uint8 [P, BUF]; length/f/r/seed_canon:
     int64 [P]; status: int8 [P]; has_prev: bool [P]; all contiguous on
     one CUDA device."""
     args = dict(buf=(buf, torch.uint8),
@@ -312,8 +321,9 @@ def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
     """Forward look-ahead depth of each root k-mer (csrc/walk.cu
     branch_kernel): the same int32 [N] as dbg/extend.branch_depths_plain.
 
-    solid: the walk table or a CountingBloomFilter, as for `walk` (the
-    Bloom variant counts as launches["branch_bloom"]); roots: uint8
+    solid: the walk table, a CountingBloomFilter or a
+    CascadingBloomFilter, as for `walk` (the filter variants count as
+    launches["branch_bloom"] and ["branch_cascade"]); roots: uint8
     [N, k]; f0/r0: int64 [N] the roots' hashes; all contiguous on one
     CUDA device.  `probes` (int64 [N]), if given, receives each root's
     solidity tests as a sequential scan of each step's children in

@@ -38,13 +38,13 @@ Stage map (bloom mode, cf. SURVEY.md §3.1 and bin/abyss-pe:553-749):
   stats abyss-fac             -> name-stats.{tab,csv,md}
 
 Port of abyss_tpu/pipeline/pe.py: stages 1 to 8, 10 and stats with
-the bloom engine or the exact hash-DBG engine (engine=exact, packed or
-wide k), colour-space input, lr= and long=, writing the JAX package's
-artifacts byte for byte.  Every stage that puts a tensor on a device
-takes `device` (default "cuda": without a card it raises unless
-"cpu").  The branches not ported yet raise NotImplementedError naming
-their ROADMAP item and never fall back to something else: K > 0 (A10),
-sealer_ks (A10) and np=/nh= above 1 (A12).
+the bloom engine, the exact hash-DBG engine (engine=exact, packed or
+wide k) or the paired DBG (K=), gap sealing (sealer_ks=), colour-space
+input, lr= and long=, writing the JAX package's artifacts byte for
+byte.  Every stage that puts a tensor on a device takes `device`
+(default "cuda": without a card it raises unless "cpu").  The one
+branch not ported yet, np=/nh= above 1 (ROADMAP A12), raises
+NotImplementedError and never falls back to something else.
 """
 
 from __future__ import annotations
@@ -235,12 +235,8 @@ def _fresh(p: PipelineParams, out: str) -> bool:
 
 def _unported(p: PipelineParams) -> str | None:
     """What of `p` this port cannot run yet, with its ROADMAP item."""
-    if p.K:
-        return "K= (the paired-DBG engine, ROADMAP A10)"
     if p.np_devices > 1 or p.n_hosts > 1:
         return "np=/nh= above 1 (multi-device stage 1, ROADMAP A12)"
-    if p.sealer_ks:
-        return "sealer_ks= (gap sealing, ROADMAP A10)"
     return None
 
 
@@ -252,6 +248,27 @@ def stage_unitigs_1(p: PipelineParams) -> str:
     if not _fresh(p, out):
         return out
     in_files = p.assembly_files()
+    if p.K:
+        # k = pair span, K = single k-mer size (reference naming);
+        # the engine's (k_single, K_span) argument order is the
+        # module's own
+        if p.k < 2 * p.K:
+            raise ValueError(
+                f"paired-DBG mode: k ({p.k}) is the k-mer PAIR SPAN and "
+                f"must be >= 2*K (K={p.K} is the single k-mer size); "
+                f"cf. bin/abyss-pe:556-564")
+        _log(p, f"stage 1: paired-DBG assembly (span k={p.k} "
+                f"single K={p.K}) -> {out}")
+        from ..dbg import paired_dbg
+        batches = [b.codes[:b.num_reads] for b in io_read_batches(
+            in_files, p.batch_size, p.max_read_len, q=p.q)]
+        contigs = paired_dbg.assemble_pairs(batches, p.K, p.k, kc=p.kc,
+                                            device=p.device)
+        with open(out + ".tmp", "w") as f:
+            for i, (seq, _) in enumerate(contigs):
+                f.write(f">{i} {len(seq)} 0\n{seq}\n")
+        os.rename(out + ".tmp", out)
+        return out
     if p.engine == "exact":
         _log(p, f"stage 1: exact hash-DBG assembly -> {out}")
         batches = [b.codes for b in io_read_batches(
@@ -700,6 +717,24 @@ def stage_scaffolds_8(p: PipelineParams) -> str:
     return out
 
 
+def stage_sealer(p: PipelineParams) -> str | None:
+    """Optional gap sealing of the scaffolds (abyss-sealer,
+    bin/abyss-pe:855-861 sealer_ks)."""
+    if not p.sealer_ks:
+        return None
+    out = p.path("8-sealed.fa")
+    if not _fresh(p, out):
+        return out
+    from ..gap import sealer
+    scaffolds, _ = _read_contigs(p.path("8.fa"))
+    sealed, st = sealer.seal(scaffolds, p.assembly_files(),
+                             ks=p.sealer_ks, bloom_bytes=p.bloom_bytes,
+                             device=p.device)
+    _log(p, f"sealer: closed {st.closed} of {st.gaps} gaps")
+    _write_contigs(out, sealed)
+    return out
+
+
 def stage_linked_10(p: PipelineParams) -> str | None:
     """lr=/long= rescaffolding -> name-10.fa (bin/abyss-pe:752-901)."""
     if not p.lr_files and not p.long_files:
@@ -833,6 +868,9 @@ def run(p: PipelineParams) -> dict[str, str]:
         return artifacts
     artifacts["scaffolds"] = timed("stage 7-8 (scaffolds)",
                                    stage_scaffolds_8, p)
+    sealed = timed("sealer", stage_sealer, p)
+    if sealed:
+        artifacts["sealed"] = sealed
     ten = stage_linked_10(p)
     if ten:
         artifacts["rescaffolds"] = ten

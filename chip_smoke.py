@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (abyss_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py          # one card, no arguments
+    python3 chip_smoke.py          # one card, no arguments: every phase
+    python3 chip_smoke.py NAME ... # only these phases (PHASES) and the
+                                   # phases they need run first
 
 Phases, each printing one JSON line:
 
@@ -78,15 +80,60 @@ Phases, each printing one JSON line:
           500 bp or more held to the genome as in main; every ntHash
           launch recorded by stage and shape, then the kernel at each of
           those shapes against the plain version (`nthash_exact_shapes`).
+  paired  `paired-dbg -k 80 -K 40 --kc 2` (the paired DBG in wide pair
+          mode, the JAX package's BASELINE config #4) on the same reads
+          through the tool's entry point, launch counts reset around it:
+          the phase spans (count, kc filter, fill, probe, trim, chains,
+          emission), the pair rows before and after kc, peak memory,
+          count, N50 and sum of the contigs, their N-free blocks of
+          500 bp or more held to the genome as main holds its contigs;
+          then ntHash at every shape the run launched
+          (`nthash_paired_shapes`).
+  konnector  `konnector -k 31` with its defaults on 2,000 pairs of the
+          genome's first 180 kbp (3.3x as the fixture's first 50,000
+          pairs, which take 20 minutes; the filter built from them),
+          launch counts reset around it: pairs/s, the stats block, the
+          chunks the device engine ran and those that fell back to the
+          host engine, peak memory, every merged read held to an
+          ungapped placement on the genome (the pe phase's rule); then
+          ntHash at every shape the run launched
+          (`nthash_konnector_shapes`).
+  konnector_cascade  `konnector --cascade 2 --extend` with
+          ABYSS_TPU_KONN_FILTER=cascade on 1,000 pairs of the genome's
+          first 10 kbp (30x; the fixture's first pairs would leave a
+          filter of k-mers seen twice nearly empty): the
+          cascading Bloom filter's inserts (scatter-max), the host
+          engine, and --extend's walks on the cascade; every walk and
+          look-ahead launch of the run is recorded and replayed after
+          it, bit for bit against its plain version, timed and bounded
+          (the walk_cascade and branch_cascade rows: means over the
+          launches, and each launch).
+  sealer  the pe phase's directory resumed with sealer_ks="41 31" (only
+          stage_sealer and the stats run): gaps closed of total, the
+          span, each sealed scaffold's N-free blocks of 500 bp or more
+          held to the pe phase's placement rule, except (counted) blocks
+          whose only departure is a gap between flanks that overlap on
+          the genome by fewer than 41 bases, in order on one strand,
+          which the sealer closed by writing the overlap twice, as
+          abyss_tpu's sealer does (tests/test_torch_sealer.py).
+  paired_parity  on the parity phase's reads, on the GPU and on the CPU:
+          `paired-dbg` packed (-k 40 -K 14) and wide (-k 80 -K 40), `pe
+          k=50 K=25`, `konnector -k 25` on 400 pairs with the device
+          engine, with the host engine and with --cascade 2 --extend,
+          and `pe sealer_ks` resumed from pe_parity's stage 8: every
+          output byte-identical.
 
 Then one `kernels` JSON line (each kernel's launches on the path that
 runs it, and on the pe path for the kernels pe runs, error against its
 plain version, times and bound; for ntHash also its launches on the
-exact_pe and wide paths, its times at three shapes and launches x
-(ms - bound_ms) summed over every shape of the main, pe and wide runs),
+exact_pe, wide, paired and konnector paths, its times at three shapes
+and launches x (ms - bound_ms) summed over every shape of the main,
+pe, wide and paired runs; for scatter-max also its launches on the
+konnector cascade path),
 and as the last line
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-the last line.  Without a CUDA device, or outside a checkout of the
+{"ok": true, "device": {...}} (a run of named phases prints no
+`kernels` line).  Any failed check exits non-zero before the last
+line.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero at once.
 """
 
@@ -344,7 +391,35 @@ def phase_kernel(B: int = 4096, L: int = 512) -> tuple[dict, dict]:
                 ), res[31]
 
 
-class NthashShapes:
+class Patches:
+    """Module attributes replaced until restore() (or the end of a `with`
+    block): each item (module, name, make) of the constructor replaces
+    module.name with make(original) on entering the block, and patch()
+    replaces one more at once."""
+
+    def __init__(self, *items):
+        self._items = items
+        self._undo: list = []
+
+    def patch(self, mod, name: str, fn) -> None:
+        self._undo.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def restore(self) -> None:
+        for mod, name, fn in reversed(self._undo):
+            setattr(mod, name, fn)
+        self._undo.clear()
+
+    def __enter__(self):
+        for mod, name, make in self._items:
+            self.patch(mod, name, make(getattr(mod, name)))
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+
+
+class NthashShapes(Patches):
     """Records every ntHash launch of a run by (stage, B, L, k, strands),
     and keeps the codes of the first launch of each key and of pass-1
     batch CAPTURE_BATCH, for timing at the shapes the run launched.
@@ -360,7 +435,7 @@ class NthashShapes:
         self._calls1 = 0
         self._stages = stages
         self._stage = None
-        self._undo = []
+        super().__init__()
 
     def _tag(self, mod, name: str, stage: str) -> None:
         fn = getattr(mod, name)
@@ -372,8 +447,7 @@ class NthashShapes:
             finally:
                 self._stage = outer
 
-        setattr(mod, name, tagged)
-        self._undo.append((mod, name, fn))
+        self.patch(mod, name, tagged)
 
     def __enter__(self):
         from abyss_tpu_torch.dbg import bloom_dbg
@@ -401,16 +475,9 @@ class NthashShapes:
             finally:
                 self._pass1 = False
 
-        kernels.nthash, bloom_dbg.load_filter = nthash, load_filter
+        self.patch(kernels, "nthash", nthash)
+        self.patch(bloom_dbg, "load_filter", load_filter)
         return self
-
-    def __exit__(self, *exc):
-        from abyss_tpu_torch.dbg import bloom_dbg
-        from abyss_tpu_torch.ops import kernels
-        kernels.nthash, bloom_dbg.load_filter = self._nthash, self._load
-        for mod, name, fn in reversed(self._undo):
-            setattr(mod, name, fn)
-        self._undo.clear()
 
 
 def nthash_shape_rows(rec: NthashShapes) -> tuple[list, float]:
@@ -478,8 +545,93 @@ def phase_nthash_shapes(rec: NthashShapes, synthetic: dict) -> tuple:
 
 def _solid(wf) -> tuple:
     """(what the walk kernels probe, kernel-name suffix) for a path's
-    walk filter: a ProbeSet's table, or a counting Bloom filter."""
-    return (wf.tab, "") if hasattr(wf, "tab") else (wf, "_bloom")
+    walk filter: a ProbeSet's table, a counting Bloom filter or a
+    cascading Bloom filter."""
+    if hasattr(wf, "tab"):
+        return wf.tab, ""
+    return wf, "_cascade" if hasattr(wf, "levels") else "_bloom"
+
+
+WALK_FIELDS = ("buf", "length", "f", "r", "status", "has_prev")
+
+
+def _hold_walk(wf, st0, k: int, steps: int, reps: int,
+               plain_reps: int) -> dict:
+    """One walk launch on the lane state st0 (left as it is) against
+    fast_extend_plain on the same state, in walk filter `wf`: the error
+    (0 or fail), the lanes' outcomes and steps, the bound, the kernel's
+    median time over `reps` runs and the plain version's over
+    `plain_reps` (0: the time of its one checking run)."""
+    import torch
+    from abyss_tpu_torch.dbg import extend as ext
+    from abyss_tpu_torch.ops import kernels
+    solid, variant = _solid(wf)
+    P = st0.buf.shape[0]
+
+    def fresh():
+        return st0._replace(**{n: getattr(st0, n).clone()
+                               for n in WALK_FIELDS})
+
+    kern = fresh()
+    kernels.walk(solid, kern.buf, kern.length, kern.f, kern.r, kern.status,
+                 kern.seed_canon, kern.has_prev, k, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ext.fast_extend_plain(wf, fresh(), k, steps)
+    torch.cuda.synchronize()
+    plain_once = (time.perf_counter() - t0) * 1e3
+    err = max(_max_abs_err(kern.f, plain.f), _max_abs_err(kern.r, plain.r),
+              int((kern.length - plain.length).abs().max()),
+              int((kern.status.long() - plain.status.long()).abs().max()),
+              int((kern.buf.long() - plain.buf.long()).abs().max()),
+              int((kern.has_prev != plain.has_prev).sum()))
+    check(err == 0, f"walk{variant} kernel differs from fast_extend_plain "
+                    f"(max abs err {err})")
+    status = plain.status.cpu().numpy()
+    # steps the lanes took: their advances, plus the step that stopped
+    # each lane that was ACTIVE when it began
+    adv = (plain.length - st0.length).cpu().numpy()
+    stopped = (status != ext.ACTIVE) & (st0.status.cpu().numpy()
+                                        == ext.ACTIVE)
+    lane_steps = int((adv + stopped).sum())
+    per_step = WALK_BLOOM_BYTES_PER_STEP if variant else WALK_BYTES_PER_STEP
+    nbytes = (lane_steps * per_step + int(adv.sum())
+              + 2 * P * (8 * 3 + 2) + P * 8)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = lane_steps * WALK_OPS_PER_STEP / INT_OPS_PER_S * 1e3
+    work = fresh()
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=wf.device)
+
+    def reset():
+        for n in WALK_FIELDS:
+            getattr(work, n).copy_(getattr(st0, n))
+        flush_buf.fill_(1)
+
+    ms = median_ms(lambda: kernels.walk(
+        solid, work.buf, work.length, work.f, work.r, work.status,
+        work.seed_canon, work.has_prev, k, steps), reps, flush=reset)
+    plain_ms = median_ms(lambda: ext.fast_extend_plain(wf, work, k, steps),
+                         plain_reps, flush=reset) if plain_reps else \
+        plain_once
+    return dict(lanes=P, buf=st0.buf.shape[1], max_steps=steps,
+                lane_steps=lane_steps,
+                chain_steps=int((adv + stopped).max()),
+                grid_blocks=kernels.walk_blocks(P, k), status=status,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                bytes_ms=bytes_ms, ops_ms=ops_ms, plain=plain)
+
+
+def _filter_bytes(wf) -> int:
+    solid, variant = _solid(wf)
+    if variant == "":
+        return int(solid.numel() * solid.element_size())
+    return int(solid.levels.numel() if variant == "_cascade"
+               else solid.counters.numel())
+
+
+def _bound(bytes_ms: float, ops_ms: float) -> dict:
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
@@ -489,72 +641,70 @@ def phase_walk(wf, paths, params, P: int = 4096) -> tuple:
     of its first batch, with the path's k, buffer and step budget
     (k + chunk bases, chunk steps)."""
     import numpy as np
-    import torch
     from abyss_tpu_torch.dbg import extend as ext
     from abyss_tpu_torch.io import read_batches
-    from abyss_tpu_torch.ops import kernels
-    dev = wf.device
-    solid, variant = _solid(wf)
+    _, variant = _solid(wf)
     k, steps = params.k, params.chunk
     first = next(iter(read_batches(paths, P, params.max_read_len)))
     st0 = ext.init_state(np.ascontiguousarray(first.codes[:, :k]), k + steps,
-                         k, dev)
-    fields = ("buf", "length", "f", "r", "status", "has_prev")
-
-    def fresh():
-        return st0._replace(**{n: getattr(st0, n).clone() for n in fields})
-
-    kern = fresh()
-    kernels.walk(solid, kern.buf, kern.length, kern.f, kern.r, kern.status,
-                 kern.seed_canon, kern.has_prev, k, steps)
-    plain = ext.fast_extend_plain(wf, fresh(), k, steps)
-    torch.cuda.synchronize()
-    err = max(_max_abs_err(kern.f, plain.f), _max_abs_err(kern.r, plain.r),
-              int((kern.length - plain.length).abs().max()),
-              int((kern.status.long() - plain.status.long()).abs().max()),
-              int((kern.buf.long() - plain.buf.long()).abs().max()),
-              int((kern.has_prev != plain.has_prev).sum()))
-    check(err == 0, f"walk kernel differs from fast_extend_plain "
-                    f"(max abs err {err})")
-    status = plain.status.cpu().numpy()
+                         k, wf.device)
+    got = _hold_walk(wf, st0, k, steps, 10, 3)
+    status = got.pop("status")
     check(len(set(status.tolist())) >= 3, "walk check: too few lane outcomes")
-    # steps the lanes took: their advances, plus the step that stopped them
-    adv = (plain.length - st0.length).cpu().numpy()
-    lane_steps = int((adv + (status != ext.ACTIVE)).sum())
-    per_step = WALK_BLOOM_BYTES_PER_STEP if variant else WALK_BYTES_PER_STEP
-    nbytes = (lane_steps * per_step + int(adv.sum())
-              + 2 * P * (8 * 3 + 2) + P * 8)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = lane_steps * WALK_OPS_PER_STEP / INT_OPS_PER_S * 1e3
-    work = fresh()
-    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-    def reset():
-        for n in fields:
-            getattr(work, n).copy_(getattr(st0, n))
-        flush_buf.fill_(1)
-
-    ms = median_ms(lambda: kernels.walk(
-        solid, work.buf, work.length, work.f, work.r, work.status,
-        work.seed_canon, work.has_prev, k, steps), 10, flush=reset)
-    plain_ms = median_ms(lambda: ext.fast_extend_plain(wf, work, k, steps),
-                         3, flush=reset)
-    # the longest lane's steps: a chain of dependent probe rounds
-    chain = int((adv + (status != ext.ACTIVE)).max())
+    plain = got.pop("plain")
     row = dict(phase="kernel", kernel="walk" + variant, lanes=P,
                buf=k + steps, k=k, max_steps=steps,
-               filter_bytes=int(solid.numel() * solid.element_size()
-                                if variant == "" else
-                                solid.counters.numel()),
-               lane_steps=lane_steps, chain_steps=chain,
-               us_per_chain_step=ms * 1e3 / chain,
-               grid_blocks=kernels.walk_blocks(P, k),
+               filter_bytes=_filter_bytes(wf),
+               lane_steps=got["lane_steps"], chain_steps=got["chain_steps"],
+               us_per_chain_step=got["ms"] * 1e3 / got["chain_steps"],
+               grid_blocks=got["grid_blocks"],
                outcomes={ext.STATUS_NAMES[int(c)]: int((status == c).sum())
                          for c in np.unique(status)},
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               max_abs_err=got["max_abs_err"], ms=got["ms"],
+               plain_ms=got["plain_ms"], bytes=got["bytes"],
+               **_bound(got["bytes_ms"], got["ops_ms"]))
     return row, (wf, plain, k)
+
+
+def _hold_branch(wf, roots, f0, r0, k: int, max_depth: int, width: int,
+                 reps: int, plain_reps: int) -> dict:
+    """One look-ahead launch on roots [N, k] with hashes (f0, r0) against
+    branch_depths_plain in walk filter `wf`: the error (0 or fail), the
+    depths, the probes and bound, the kernel's median time over `reps`
+    runs and the plain version's over `plain_reps` (0: the time of its
+    one checking run)."""
+    import torch
+    from abyss_tpu_torch.dbg import extend as ext
+    from abyss_tpu_torch.ops import kernels
+    solid, variant = _solid(wf)
+    N = roots.shape[0]
+    probes = torch.zeros(N, dtype=torch.int64, device=roots.device)
+    depth = kernels.branch(solid, roots, f0, r0, k, max_depth, width, probes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ext.branch_depths_plain(wf, roots, (f0, r0), k, max_depth, width)
+    torch.cuda.synchronize()
+    plain_once = (time.perf_counter() - t0) * 1e3
+    err = int((depth.long() - plain.long()).abs().max())
+    check(err == 0, f"branch{variant} kernel differs from "
+                    f"branch_depths_plain (max abs err {err})")
+    n_probes = int(probes.sum())
+    nbytes = n_probes * (BRANCH_BLOOM_BYTES_PER_PROBE if variant else 64) \
+        + N * (k + 8 + 8 + 4)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8,
+                            device=roots.device)
+    ms = median_ms(lambda: kernels.branch(solid, roots, f0, r0, k,
+                                          max_depth, width), reps,
+                   flush=lambda: flush_buf.fill_(1))
+    plain_ms = median_ms(lambda: ext.branch_depths_plain(
+        wf, roots, (f0, r0), k, max_depth, width), plain_reps,
+        flush=lambda: flush_buf.fill_(1)) if plain_reps else plain_once
+    return dict(roots=N, max_depth=max_depth, width=width, probes=n_probes,
+                chain_steps=int(plain.max()),
+                grid_blocks=kernels.branch_blocks(N), depths=plain,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=n_probes * BRANCH_OPS_PER_PROBE / INT_OPS_PER_S * 1e3)
 
 
 def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
@@ -564,8 +714,8 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
     path's frontier width, in the walk filter the lanes walked."""
     import torch
     from abyss_tpu_torch.dbg import extend as ext
-    from abyss_tpu_torch.ops import kernels, nthash
-    solid, variant = _solid(wf)
+    from abyss_tpu_torch.ops import nthash
+    _, variant = _solid(wf)
     heads, _ = ext._stuck_heads(walked.buf, k, walked.length)
     P = heads.shape[0]
     roots = torch.cat([heads[:, None, 1:].expand(P, 4, k - 1),
@@ -573,43 +723,121 @@ def phase_branch(wf, walked, k: int, width: int = 16) -> dict:
                        [None, :, None].expand(P, 4, 1)], dim=2)
     roots = roots.reshape(4 * P, k).contiguous()
     f0, r0 = nthash.hash_base(roots, k)
-    probes = torch.zeros(4 * P, dtype=torch.int64, device=roots.device)
-    depth = kernels.branch(solid, roots, f0, r0, k, k, width, probes)
-    plain = ext.branch_depths_plain(wf, roots, (f0, r0), k, k, width)
-    torch.cuda.synchronize()
-    err = int((depth.long() - plain.long()).abs().max())
-    check(err == 0, f"branch kernel differs from branch_depths_plain "
-                    f"(max abs err {err})")
+    got = _hold_branch(wf, roots, f0, r0, k, k, width, 10, 3)
+    plain = got.pop("depths")
     check(len(set(plain.tolist())) >= 3, "branch check: too few depths")
-    n_probes = int(probes.sum())
-    N = 4 * P
-    nbytes = n_probes * (BRANCH_BLOOM_BYTES_PER_PROBE if variant else 64) \
-        + N * (k + 8 + 8 + 4)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_probes * BRANCH_OPS_PER_PROBE / INT_OPS_PER_S * 1e3
-    flush_buf = torch.empty(128 << 20, dtype=torch.uint8,
-                            device=roots.device)
-    ms = median_ms(lambda: kernels.branch(solid, roots, f0, r0, k, k,
-                                          width), 10,
-                   flush=lambda: flush_buf.fill_(1))
-    plain_ms = median_ms(lambda: ext.branch_depths_plain(
-        wf, roots, (f0, r0), k, k, width), 3,
-        flush=lambda: flush_buf.fill_(1))
-    chain = int(plain.max())   # the deepest root's depth
-    row = dict(phase="kernel", kernel="branch" + variant, roots=N, k=k,
-               max_depth=k,
-               width=width, probes=n_probes, chain_steps=chain,
-               us_per_chain_step=ms * 1e3 / max(chain, 1),
-               grid_blocks=kernels.branch_blocks(N),
+    chain = got["chain_steps"]   # the deepest root's depth
+    row = dict(phase="kernel", kernel="branch" + variant, roots=4 * P, k=k,
+               max_depth=k, width=width, probes=got["probes"],
+               chain_steps=chain,
+               us_per_chain_step=got["ms"] * 1e3 / max(chain, 1),
+               grid_blocks=got["grid_blocks"],
                depth_hist={int(d): int(n) for d, n in zip(
                    *torch.unique(plain, return_counts=True))},
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               max_abs_err=got["max_abs_err"], ms=got["ms"],
+               plain_ms=got["plain_ms"], bytes=got["bytes"],
+               **_bound(got["bytes_ms"], got["ops_ms"]))
     return row
 
 
-class Spans:
+class WalkCalls(Patches):
+    """Records every launch of the walk and look-ahead kernels during a
+    run: the filter, the inputs as the kernel got them (copies) and the
+    scalar arguments, to replay each launch against its plain version
+    after the run at the run's own shapes."""
+
+    def __init__(self):
+        super().__init__()
+        self.walks: list = []
+        self.branches: list = []
+
+    def __enter__(self):
+        from abyss_tpu_torch.dbg import extend as ext
+        from abyss_tpu_torch.ops import kernels
+        walk, branch = kernels.walk, kernels.branch
+
+        def recording_walk(solid, buf, length, f, r, status, seed_canon,
+                           has_prev, k, max_steps):
+            st = ext.ExtendState(buf.clone(), length.clone(), f.clone(),
+                                 r.clone(), status.clone(),
+                                 seed_canon.clone(), has_prev.clone())
+            self.walks.append((solid, st, k, max_steps))
+            return walk(solid, buf, length, f, r, status, seed_canon,
+                        has_prev, k, max_steps)
+
+        def recording_branch(solid, roots, f0, r0, k, max_depth, width,
+                             probes=None):
+            self.branches.append((solid, roots.clone(), f0.clone(),
+                                  r0.clone(), k, max_depth, width))
+            return branch(solid, roots, f0, r0, k, max_depth, width, probes)
+
+        self.patch(kernels, "walk", recording_walk)
+        self.patch(kernels, "branch", recording_branch)
+        return self
+
+
+def _replayed(kernel: str, calls: list, filter_bytes: int) -> dict:
+    """A kernel row from the per-launch results of a replayed run: `ms`,
+    `plain_ms` and `bound_ms` are the means over its launches (each
+    launch's own bound), their sums are the `*_run` fields, and `calls`
+    lists every launch."""
+    n = len(calls)
+    tot = {x: sum(c[x] for c in calls)
+           for x in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bytes")}
+    bound = [max(c["bytes_ms"], c["ops_ms"]) for c in calls]
+    bytes_bound = sum(c["bytes_ms"] >= c["ops_ms"] for c in calls)
+    keep = ("lanes", "buf", "max_steps", "lane_steps", "roots", "max_depth",
+            "width", "probes", "chain_steps", "grid_blocks", "ms",
+            "plain_ms")
+    return dict(phase="kernel", kernel=kernel, replayed_launches=n,
+                filter_bytes=filter_bytes,
+                max_abs_err=max(c["max_abs_err"] for c in calls),
+                ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+                bound_ms=sum(bound) / n,
+                bound_by="bytes" if 2 * bytes_bound >= n else "operations",
+                ms_run=tot["ms"], plain_ms_run=tot["plain_ms"],
+                bound_ms_run=sum(bound), bytes_run=tot["bytes"],
+                calls=[dict({x: c[x] for x in keep if x in c},
+                            bound_ms=b) for c, b in zip(calls, bound)])
+
+
+def phase_replay_walks(rec: WalkCalls, launches: dict) -> tuple:
+    """Every walk and look-ahead launch a run made (WalkCalls), replayed
+    on its recorded inputs: each bit for bit against its plain version,
+    timed (median of 5 kernel runs; the plain look-ahead's median of 3,
+    the plain walk's checking run, a second or more each) and bounded.
+    Returns the walk and look-ahead rows."""
+    from abyss_tpu_torch.dbg import extend as ext
+    check(len(rec.walks) == launches["walk_cascade"] and
+          len(rec.branches) == launches["branch_cascade"],
+          "replay: the recorded walk and look-ahead launches are not the "
+          "run's")
+    walks, branches = [], []
+    for wf, st0, k, steps in rec.walks:
+        got = _hold_walk(wf, st0, k, steps, 5, 0)
+        got.pop("plain")
+        status = got.pop("status")
+        got["outcomes"] = {ext.STATUS_NAMES[int(c)]: int((status == c).sum())
+                           for c in set(status.tolist())}
+        walks.append(got)
+    for wf, roots, f0, r0, k, max_depth, width in rec.branches:
+        got = _hold_branch(wf, roots, f0, r0, k, max_depth, width, 5, 3)
+        got.pop("depths")
+        branches.append(got)
+    check(sum(c["lane_steps"] for c in walks) > 0,
+          "replay: the recorded walks took no step")
+    check(sum(c["probes"] for c in branches) > 0,
+          "replay: the recorded look-aheads probed nothing")
+    fb = _filter_bytes(rec.walks[0][0])
+    walk = _replayed("walk_cascade", walks, fb)
+    walk["outcomes"] = {}
+    for c in walks:
+        for name, n in c["outcomes"].items():
+            walk["outcomes"][name] = walk["outcomes"].get(name, 0) + n
+    return walk, _replayed("branch_cascade", branches, fb)
+
+
+class Spans(Patches):
     """Host seconds of a few functions of pass 2, each net of the wrapped
     functions it calls (a stack of open spans), with a device sync at
     the end of each span so device work lands in the span that queued
@@ -621,7 +849,7 @@ class Spans:
         self.gross: dict = {}         # the same spans with their insides
         self.calls: dict = {}
         self._open: list = []
-        self._undo: list = []
+        super().__init__()
 
     def wrap(self, mod, name: str, label: str | None = None) -> None:
         import torch
@@ -643,13 +871,7 @@ class Spans:
                 if self._open:
                     self._open[-1] += dt
 
-        setattr(mod, attr, span)
-        self._undo.append((mod, attr, fn))
-
-    def restore(self) -> None:
-        for mod, name, fn in reversed(self._undo):
-            setattr(mod, name, fn)
-        self._undo.clear()
+        self.patch(mod, attr, span)
 
 
 def _write_fastq(path: str, ids: list, reads, qual: bytes) -> None:
@@ -757,14 +979,13 @@ def _drive(paths, params, expected: tuple) -> dict:
         walk_filters.append(walk_filter(cbf))
         return walk_filters[-1]
 
-    ext.walk_filter = keep_walk_filter
+    spans.patch(ext, "walk_filter", keep_walk_filter)
     kernels.reset_launches()
     try:
         fasta = _assemble(paths, params, "cuda", timings)
     finally:
         launches = dict(kernels.launches)
         spans.restore()
-        ext.walk_filter = walk_filter
     torch.cuda.synchronize()
     for name in expected:
         check(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -829,13 +1050,13 @@ def _check_contigs(row: dict) -> None:
           f"genome, below {MIN_COVER_500}")
 
 
-def phase_main(tmp: str) -> tuple:
-    """The main path at full size; returns its row, (walk filter, read
-    paths, params) for the walk and look-ahead kernel checks, the
-    genome, and its ntHash launches (NthashShapes)."""
+def make_fixture(tmp: str) -> dict:
+    """The 4.6 Mbp genome with 12 repeats of 700 bp and 613,333 read
+    pairs of 150 bases at 40x (fragments 500 +- 50, error 0.005, seed
+    11) in tmp/r1.fq and tmp/r2.fq: the reads of the main, bloom, pe,
+    exact_pe, wide, paired and sealer phases."""
     from abyss_tpu_torch import sim
     from abyss_tpu_torch.core import alphabet
-    from abyss_tpu_torch.dbg.params import AssemblyParams
     t0 = time.perf_counter()
     genome_bp = 4_600_000
     genome = sim.genome_with_repeats(genome_bp, seed=7, n_repeats=12,
@@ -848,15 +1069,26 @@ def phase_main(tmp: str) -> tuple:
     sim_s = time.perf_counter() - t0
     log(f"main: {genome_bp} bp genome, {n_pairs} pairs simulated in "
         f"{sim_s:.1f}s")
+    return dict(genome=genome, paths=paths, n_pairs=n_pairs,
+                read_len=read_len, simulate_s=sim_s)
+
+
+def phase_main(fx: dict) -> tuple:
+    """The main path at full size on the fixture's reads; returns its
+    row, (walk filter, read paths, params) for the walk and look-ahead
+    kernel checks, and its ntHash launches (NthashShapes)."""
+    from abyss_tpu_torch.dbg.params import AssemblyParams
+    paths = fx["paths"]
     # the CLI defaults: batch 4096, max read length 512
     params = AssemblyParams(k=31)
     with NthashShapes() as shapes:
         run = _drive(paths, params, ("nthash", "walk", "branch"))
-    row = _hold_to_genome(run, genome, "main", params, n_pairs, read_len)
-    row["simulate_s"] = sim_s
+    row = _hold_to_genome(run, fx["genome"], "main", params, fx["n_pairs"],
+                          fx["read_len"])
+    row["simulate_s"] = fx["simulate_s"]
     emit(row)
     _check_contigs(row)
-    return row, (run["walk_filter"], paths, params), genome, shapes
+    return row, (run["walk_filter"], paths, params), shapes
 
 
 def phase_bloom(paths, genome: str, main_row: dict) -> tuple:
@@ -1032,34 +1264,54 @@ def _pe_params(name: str, paths, outdir: str, device: str):
                              outdir=outdir, verbose=0, device=device)
 
 
-def ungapped_mismatches(block: str, strands, anchor: int = 32,
-                        tries: int = 16) -> list | None:
-    """Offsets where `block` differs from the genome at an ungapped
-    placement with no more than MAX_SUBS_PER_WINDOW differing bases in
-    any SUBS_WINDOW consecutive ones, or None when there is none.
-    Placements are anchored by exact `anchor`-mers of the block at up to
-    `tries` offsets, on each strand (strands: (sequence, uint8 codes) of
-    the genome and of its reverse complement); the first that passes is
-    taken."""
+def _anchor_offsets(n: int, anchor: int = 32, tries: int = 16) -> range:
+    """Offsets of the anchors a placement of n bases tries."""
+    return range(0, n - anchor + 1, max(1, (n - anchor) // tries))
+
+
+def _place(codes, strand_codes, hits) -> tuple | None:
+    """(differing offsets, strand, start) of the first ungapped placement
+    of `codes` with no more than MAX_SUBS_PER_WINDOW differing bases in
+    any SUBS_WINDOW consecutive ones, or None.  For each anchor offset
+    (_anchor_offsets) and each strand in turn (strand_codes: the
+    genome's uint8 codes and its reverse complement's), hits(strand,
+    off) gives where the anchor occurs exactly on that strand, its first
+    16 occurrences in order; the first that passes is taken."""
     import numpy as np
-    from abyss_tpu_torch.core import alphabet
-    codes = alphabet.encode(block)
-    n = len(block)
-    for off in range(0, n - anchor + 1, max(1, (n - anchor) // tries)):
-        for seq, seq_codes in strands:
-            pos = seq.find(block[off:off + anchor])
-            seen = 0
-            while pos >= 0 and seen < 16:
-                start = pos - off
-                if 0 <= start <= len(seq) - n:
-                    diff = np.nonzero(codes != seq_codes[start:start + n])[0]
-                    ends = np.searchsorted(diff, diff + SUBS_WINDOW)
-                    if not len(diff) or int((ends - np.arange(len(diff)))
-                                            .max()) <= MAX_SUBS_PER_WINDOW:
-                        return diff.tolist()
-                pos = seq.find(block[off:off + anchor], pos + 1)
-                seen += 1
+    n = len(codes)
+    for off in _anchor_offsets(n):
+        for strand, ref in enumerate(strand_codes):
+            for pos in hits(strand, off):
+                start = int(pos) - off
+                if not 0 <= start <= len(ref) - n:
+                    continue
+                diff = np.nonzero(codes != ref[start:start + n])[0]
+                ends = np.searchsorted(diff, diff + SUBS_WINDOW)
+                if not len(diff) or int((ends - np.arange(len(diff)))
+                                        .max()) <= MAX_SUBS_PER_WINDOW:
+                    return diff.tolist(), strand, start
     return None
+
+
+def ungapped_mismatches(block: str, strands) -> list | None:
+    """Offsets where `block` differs from the genome at its first
+    placement under _place's rule, or None when there is none; the
+    anchors are found by str.find (strands: (sequence, uint8 codes) of
+    the genome and of its reverse complement).  GenomeIndex places many
+    sequences on a large genome the same way."""
+    from abyss_tpu_torch.core import alphabet
+
+    def hits(strand, off):
+        seq, anchor = strands[strand][0], block[off:off + 32]
+        pos = seq.find(anchor)
+        for _ in range(16):
+            if pos < 0:
+                return
+            yield pos
+            pos = seq.find(anchor, pos + 1)
+
+    found = _place(alphabet.encode(block), [c for _, c in strands], hits)
+    return None if found is None else found[0]
 
 
 def _fa_lengths(path: str) -> list:
@@ -1067,7 +1319,7 @@ def _fa_lengths(path: str) -> list:
     return [len(r.seq) for r in fastx.read_fastx(path)]
 
 
-class PeCapture:
+class PeCapture(Patches):
     """Wraps the mapper's vote and the MLE scan during a pe run: counts
     the groups the scan took on the card, and keeps the first vote's
     inputs and outputs and every estimate_distances_device call's
@@ -1077,11 +1329,7 @@ class PeCapture:
         self.mle_groups = 0
         self.mle_calls = []
         self.vote = None
-        self._undo = []
-
-    def _wrap(self, mod, name, fn):
-        self._undo.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, fn)
+        super().__init__()
 
     def __enter__(self):
         from abyss_tpu_torch.align import distance_est, mapper
@@ -1104,15 +1352,10 @@ class PeCapture:
                 self.vote = (index, codes.clone(), k, out)
             return out
 
-        self._wrap(distance_est, "_mle_scan", counting_scan)
-        self._wrap(distance_est, "estimate_distances_device", recording_est)
-        self._wrap(mapper, "_vote_kernel", recording_vote)
+        self.patch(distance_est, "_mle_scan", counting_scan)
+        self.patch(distance_est, "estimate_distances_device", recording_est)
+        self.patch(mapper, "_vote_kernel", recording_vote)
         return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in reversed(self._undo):
-            setattr(mod, name, fn)
-        self._undo.clear()
 
     def hold_to_cpu(self) -> dict:
         """The first vote and every device MLE call of the run, again on
@@ -1275,11 +1518,11 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
     return row, shapes
 
 
-def phase_pe_shapes(rec: NthashShapes) -> dict:
-    """The ntHash kernel at every shape the pe run launched, as
-    phase_nthash_shapes does for the main run."""
+def phase_shapes(rec: NthashShapes, kernel: str) -> dict:
+    """The ntHash kernel at every shape a run launched (as
+    phase_nthash_shapes does for the main run)."""
     rows, gap = nthash_shape_rows(rec)
-    return dict(phase="kernel", kernel="nthash_pe_shapes",
+    return dict(phase="kernel", kernel=kernel,
                 launches=sum(r["launches"] for r in rows), gap_ms=gap,
                 histogram=rows)
 
@@ -1331,7 +1574,7 @@ WIDE_K = 96
 WIDE_KC = 3
 
 
-class ExactCapture:
+class ExactCapture(Patches):
     """During a run of the exact engine: the seconds of each of its
     phases (hash_dbg.assemble_reads given a `timings` dict, which ends
     every phase in a device synchronisation) and the wide fill's rows
@@ -1342,7 +1585,7 @@ class ExactCapture:
         self.calls = 0
         self.collisions = 0
         self.fill_rows = 0
-        self._undo: list = []
+        super().__init__()
 
     def __enter__(self):
         from abyss_tpu_torch.dbg import hash_dbg
@@ -1358,17 +1601,9 @@ class ExactCapture:
             self.fill_rows += t.n
             return out
 
-        for name, fn in (("assemble_reads", assemble_reads),
-                         ("fill_wide_side", fill_wide_side)):
-            self._undo.append((name, getattr(hash_dbg, name)))
-            setattr(hash_dbg, name, fn)
+        self.patch(hash_dbg, "assemble_reads", assemble_reads)
+        self.patch(hash_dbg, "fill_wide_side", fill_wide_side)
         return self
-
-    def __exit__(self, *exc):
-        from abyss_tpu_torch.dbg import hash_dbg
-        for name, fn in reversed(self._undo):
-            setattr(hash_dbg, name, fn)
-        self._undo.clear()
 
     def phases(self) -> dict:
         return {n: self.seconds[n] for n in EXACT_PHASES
@@ -1570,7 +1805,624 @@ def phase_exact_parity(tmp: str) -> dict:
 
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the paired DBG and Konnector/Sealer paths
+
+# `paired-dbg -k 80 -K 40 --kc 2`: the JAX package's BASELINE config #4
+# (BENCH_NOTES.md, "Paired DBG, span k=80 / K=40")
+PAIRED_ARGS = ("-k", "80", "-K", "40", "--kc", "2")
+PAIRED_SPAN = 80
+# konnector -k 31 on KONN_PAIRS pairs sampled as the fixture's are
+# (fragments 500 +- 50, error 0.005) from the genome's first KONN_BP
+# bases, the filter built from them: 3.3x, the coverage of
+# BENCH_NOTES.md's subset ("Konnector throughput", the fixture's first
+# 50,000 pairs) on a 25th of the genome.  That subset takes 1,241 s on
+# an H100: at the tool's threshold of 1 all 7 of its chunks overflow
+# the device engine's stores and run the host engine.  The coverage
+# has to stay: the fixture's first 2,000 pairs (0.13x) merge nothing
+# (no path), and 2,000 pairs at 40x merge nothing either (every pair
+# meets more than max_paths error bubbles).  The cascade run takes
+# KONN_CASCADE_PAIRS pairs of the genome's first KONN_CASCADE_BP bases
+# (30x): a filter of k-mers seen twice needs the coverage.
+KONN_K = 31
+KONN_PAIRS = 2_000
+KONN_BP = 180_000
+KONN_CASCADE_PAIRS = 1_000
+KONN_CASCADE_BP = 10_000
+# sealer_ks of the sealer phase, resumed from the pe phase's stage 8
+SEALER_KS = (41, 31)
+# the parity phase's konnector subset (the device engine on the CPU runs
+# a few hundred small tensor ops a BFS level)
+PARITY_KONN_PAIRS = 400
+
+
+def _head_fastq(src: str, dst: str, n: int) -> None:
+    """The first n records of a FASTQ file."""
+    with open(src) as f, open(dst, "w") as g:
+        for i, line in enumerate(f):
+            if i >= 4 * n:
+                break
+            g.write(line)
+
+
+class GenomeIndex:
+    """ungapped_mismatches' placement of many sequences on a genome, its
+    anchors looked up in a sorted array of the genome's packed 32-mers
+    on both strands (str.find takes milliseconds a lookup on 4.6 Mbp):
+    the same hits in the same order, so the same placements."""
+
+    def __init__(self, genome: str):
+        import numpy as np
+        from abyss_tpu_torch.core import alphabet
+        self.strands = []
+        for codes in (alphabet.encode(genome),
+                      alphabet.encode(alphabet.revcomp(genome))):
+            keys = self._pack(codes)
+            order = np.argsort(keys, kind="stable")
+            self.strands.append((codes, keys[order], order))
+
+    @staticmethod
+    def _pack(codes):
+        import numpy as np
+        n = len(codes) - 31
+        w = np.zeros(max(n, 0), np.uint64)
+        for j in range(32):
+            w = (w << np.uint64(2)) | codes[j:j + n].astype(np.uint64)
+        return w
+
+    def place(self, seq: str) -> list | None:
+        """Offsets where seq differs from its placement, or None."""
+        found = self.locate(seq)
+        return None if found is None else found[0]
+
+    def locate(self, seq: str) -> tuple | None:
+        """(differing offsets, strand 0/1, start) of seq's first
+        placement (_place), or None."""
+        import numpy as np
+        from abyss_tpu_torch.core import alphabet
+        c = alphabet.encode(seq.upper())
+
+        def hits(strand, off):
+            anchor = c[off:off + 32]
+            if (anchor > 3).any():   # the genome has no N
+                return ()
+            _, keys, pos = self.strands[strand]
+            key = self._pack(anchor)
+            lo = np.searchsorted(keys, key, "left")[0]
+            hi = np.searchsorted(keys, key, "right")[0]
+            return pos[lo:min(hi, lo + 16)]
+
+        return _place(c, [codes for codes, _, _ in self.strands], hits)
+
+    def explain(self, seq: str) -> dict:
+        """Where the two halves of an unplaced sequence place (an indel
+        shows as the halves' starts differing by the half length plus
+        the indel's size, on one strand)."""
+        h = len(seq) // 2
+        out = dict(length=len(seq))
+        for name, part in (("first_half", seq[:h]), ("second_half", seq[h:])):
+            found = self.locate(part)
+            out[name] = None if found is None else dict(
+                strand=found[1], start=found[2], substitutions=len(found[0]))
+        return out
+
+
+def phase_paired(tmp: str, paths, genome: str) -> tuple:
+    """`paired-dbg -k 80 -K 40 --kc 2` (BASELINE config #4, the wide pair
+    mode) through the tool's entry point on the card with the main
+    phase's reads, launch counts set to 0 just before and read just
+    after: the phase spans (count, kc filter, fill, probe, trim, chains,
+    emission), the pair rows before and after kc, peak memory, count,
+    N50 and sum of the contigs, every ntHash launch by stage and shape;
+    the contigs' N-free blocks of 500 bp or more held to the genome with
+    the main phase's checks.  Returns its row and the ntHash recorder."""
+    import torch
+    from abyss_tpu_torch.cli import tools2
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.dbg import paired_dbg
+    from abyss_tpu_torch.io import fastx
+    from abyss_tpu_torch.ops import kernels
+    out = os.path.join(tmp, "paired.fa")
+    info: dict = {}
+
+    def with_info(fn):
+        return lambda *a, **kw: fn(*a, info=info, **kw)
+
+    stages = ((paired_dbg, "_pair_canon_batch", "count"),
+              (paired_dbg, "_pair_fill_batch", "fill"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with Patches((paired_dbg, "assemble_pairs", with_info)), \
+                NthashShapes(stages) as shapes:
+            tools2.paireddbg_main([*paths, *PAIRED_ARGS, "-o", out,
+                                   "--device", "cuda"])
+    finally:
+        launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(launches["nthash"] > 0, "kernel nthash was not launched on the "
+                                  "paired path")
+    seqs = [r.seq for r in fastx.read_fastx(out)]
+    check(len(seqs) > 0, "paired: assembled no contig")
+    rc = alphabet.revcomp(genome)
+    blocks = [b for s in seqs for b in s.split("N") if len(b) >= 500]
+    off = [b for b in blocks if b not in genome and b not in rc]
+    wrong = sum(1 for b in off if b[PAIRED_SPAN:-PAIRED_SPAN] not in genome
+                and b[PAIRED_SPAN:-PAIRED_SPAN] not in rc)
+    lengths = [len(s) for s in seqs]
+    with open(out, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    row = dict(phase="paired", command=" ".join(["paired-dbg",
+                                                 *PAIRED_ARGS]),
+               genome_bp=len(genome), wall_s=wall,
+               phase_s={n: info[n] for n in (
+                   "count", "kc filter", "fill", "probe", "trim", "chains",
+                   "emission") if n in info},
+               pair_rows=info.get("rows"), pair_rows_kc=info.get("rows_kc"),
+               contigs=len(seqs), total_bases=sum(lengths),
+               n50=_n50(lengths), max_contig=max(lengths),
+               contigs_with_n=sum("N" in s for s in seqs),
+               blocks_500=len(blocks),
+               cover_500=sum(len(b) for b in blocks) / len(genome),
+               not_substring_500=len(off), wrong_500_inside_ends=wrong,
+               fasta_sha256=sha,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               nthash_launches=[dict(stage=key[0], shape=list(key[1:3]),
+                                     k=key[3], strands=key[4], launches=n)
+                                for key, n in sorted(shapes.hist.items())])
+    emit(row)
+    _check_contigs(row)
+    return row, shapes
+
+
+class KonnCapture:
+    """During a konnector run: the chunks the device engine finished and
+    those it handed to the host engine (or never took: a filter it
+    cannot search), and the span of connect_pairs_full."""
+
+    def __init__(self):
+        self.chunks = 0
+        self.device = 0
+        self.fallback = 0
+        self.search_s = 0.0
+        self.connect_s = 0.0
+
+    def wrapped(self):
+        from abyss_tpu_torch.gap import konnector, konnector_dev
+
+        def chunk(fn):
+            def run(*a, **kw):
+                self.chunks += 1
+                return fn(*a, **kw)
+            return run
+
+        def search(fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.search_s += time.perf_counter() - t0
+                self.device += out is not None
+                self.fallback += out is None
+                return out
+            return run
+
+        def connect(fn):
+            def run(*a, **kw):
+                import torch
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.connect_s += time.perf_counter() - t0
+                return out
+            return run
+
+        return Patches((konnector, "_connect_chunk", chunk),
+                       (konnector_dev, "search", search),
+                       (konnector, "connect_pairs_full", connect))
+
+    def fields(self) -> dict:
+        return dict(chunks=self.chunks, chunks_device=self.device,
+                    chunks_host=self.chunks - self.device,
+                    chunks_device_fell_back=self.fallback,
+                    device_search_s=self.search_s,
+                    connect_s=self.connect_s)
+
+
+def _run_konnector(argv, env: dict | None = None) -> str:
+    """The konnector tool's main with `env` set around it; returns what
+    it wrote to stderr (its stats block)."""
+    import contextlib
+    from abyss_tpu_torch.cli import tools
+    saved = {n: os.environ.get(n) for n in (env or {})}
+    err = io.StringIO()
+    try:
+        os.environ.update(env or {})
+        with contextlib.redirect_stderr(err):
+            tools.konnector_main(argv)
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+    return err.getvalue()
+
+
+def _merged_reads(prefix: str) -> list:
+    from abyss_tpu_torch.io import fastx
+    return [r.seq for r in fastx.read_fastx(prefix + "_merged.fa")]
+
+
+def phase_konnector(tmp: str, genome: str, gidx: GenomeIndex) -> tuple:
+    """`konnector -k 31` with its defaults on KONN_PAIRS pairs of the
+    genome's first KONN_BP bases (the filter built from them), on the
+    card through the tool's entry point, launch counts set to 0 just before and read just
+    after: pairs/s, the stats block, the chunks the device engine ran and
+    those that fell back, peak memory and every ntHash launch by stage
+    and shape; every merged read held to an ungapped placement on the
+    genome (the pe phase's rule).  Returns its row and the ntHash
+    recorder."""
+    import torch
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.gap import konnector
+    from abyss_tpu_torch.ops import kernels
+    sub = [os.path.join(tmp, f"konn{i}.fq") for i in (1, 2)]
+    simulate_reads(alphabet.encode(genome[:KONN_BP]), KONN_PAIRS, 150, 500,
+                   50, 0.005, 12, *sub)
+    prefix = os.path.join(tmp, "konn")
+    cap = KonnCapture()
+    stages = ((konnector, "_connect_chunk", "seeds"),
+              (konnector, "_solid_windows", "solid_windows"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with cap.wrapped(), NthashShapes(stages) as shapes:
+            summary = _run_konnector([*sub, "-k", str(KONN_K), "-o", prefix,
+                                      "--device", "cuda"])
+    finally:
+        launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(launches["nthash"] > 0, "kernel nthash was not launched on the "
+                                  "konnector path")
+    merged = _merged_reads(prefix)
+    check(len(merged) > 0, "konnector: merged no pair")
+    t1 = time.perf_counter()
+    unplaced = [s for s in merged if gidx.place(s) is None]
+    row = dict(phase="konnector", k=KONN_K, pairs=KONN_PAIRS,
+               region_bp=KONN_BP, wall_s=wall,
+               pairs_per_s=KONN_PAIRS / cap.connect_s, **cap.fields(),
+               merged=len(merged), stats=summary.strip().splitlines(),
+               merged_unplaced=len(unplaced),
+               unplaced_examples=[gidx.explain(s) for s in unplaced[:3]],
+               placement_s=time.perf_counter() - t1,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               nthash_launches=[dict(stage=key[0], shape=list(key[1:3]),
+                                     k=key[3], strands=key[4], launches=n)
+                                for key, n in sorted(shapes.hist.items())])
+    emit(row)
+    check(not unplaced, f"konnector: {len(unplaced)} merged reads have no "
+                        f"ungapped placement on the genome with at most "
+                        f"{MAX_SUBS_PER_WINDOW} substitutions in "
+                        f"{SUBS_WINDOW} bases")
+    return row, shapes
+
+
+def phase_konnector_cascade(tmp: str, genome: str) -> tuple:
+    """`konnector -k 31 --cascade 2 --extend` with
+    ABYSS_TPU_KONN_FILTER=cascade on KONN_CASCADE_PAIRS pairs of the
+    genome's first KONN_CASCADE_BP bases: the cascading Bloom filter's inserts (the scatter-max kernel), the
+    host search engine and the walks of --extend on the cascade (the
+    cascade variants of the walk and look-ahead kernels), launch counts
+    set to 0 just before and read just after.  Returns its row and the
+    run's walk and look-ahead launches (WalkCalls)."""
+    import torch
+    from abyss_tpu_torch.dbg import extend as ext
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.core import alphabet
+    sub = [os.path.join(tmp, f"kc{i}.fq") for i in (1, 2)]
+    simulate_reads(alphabet.encode(genome[:KONN_CASCADE_BP]),
+                   KONN_CASCADE_PAIRS, 150, 500, 50, 0.005, 13, *sub)
+    prefix = os.path.join(tmp, "konn_cascade")
+    cap = KonnCapture()
+    walk_filters = []
+
+    def keep(fn):
+        return lambda cbf: walk_filters.append(fn(cbf)) or walk_filters[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with cap.wrapped(), Patches((ext, "walk_filter", keep)), \
+                WalkCalls() as calls:
+            summary = _run_konnector(
+                [*sub, "-k", str(KONN_K), "--cascade", "2", "--extend", "-o",
+                 prefix, "--device", "cuda"],
+                {"ABYSS_TPU_KONN_FILTER": "cascade"})
+    finally:
+        launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("nthash", "scatter_max", "walk_cascade", "branch_cascade"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  "konnector cascade path")
+    check(cap.device == 0 and cap.chunks > 0,
+          "konnector cascade: a chunk did not take the host engine")
+    check(len(walk_filters) == 1 and hasattr(walk_filters[0], "levels"),
+          "konnector cascade: --extend walked no single cascading filter")
+    merged = _merged_reads(prefix)
+    check(len(merged) > 0, "konnector cascade: merged no pair")
+    row = dict(phase="konnector_cascade", k=KONN_K,
+               pairs=KONN_CASCADE_PAIRS, wall_s=wall, **cap.fields(),
+               merged=len(merged),
+               merged_bases=sum(len(s) for s in merged),
+               stats=summary.strip().splitlines(),
+               filter_bytes=walk_filters[0].levels.numel(),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    return row, calls
+
+
+def phase_sealer(tmp: str, paths, gidx: GenomeIndex) -> dict:
+    """The pe phase's output directory resumed with sealer_ks="41 31", so
+    that only stage_sealer (and the stats) run, launch counts set to 0
+    just before and read just after: gaps closed of total and the
+    sealer's span; each sealed scaffold's N-free blocks of 500 bp or
+    more held to the pe phase's placement rule."""
+    import torch
+    from abyss_tpu_torch.gap import sealer
+    from abyss_tpu_torch.io import fastx
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.pipeline import pe
+    out = os.path.join(tmp, "pe")
+    check(os.path.exists(os.path.join(out, "pe-8.fa")),
+          "sealer: the pe phase left no pe-8.fa")
+    params = _pe_params("pe", paths, out, "cuda")
+    params.sealer_ks = list(SEALER_KS)
+    stats = []
+
+    def keep_stats(fn):
+        def run(*a, **kw):
+            sealed, st = fn(*a, **kw)
+            stats.append(st)
+            return sealed, st
+        return run
+
+    spans = Spans()
+    spans.wrap(pe, "stage_sealer")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with Patches((sealer, "seal", keep_stats)):
+            pe.run(params)
+    finally:
+        launches = dict(kernels.launches)
+        spans.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(stats) == 1, "sealer: stage_sealer did not run once")
+    check(launches["nthash"] > 0, "kernel nthash was not launched on the "
+                                  "sealer path")
+    sealed = [(r.id, r.seq)
+              for r in fastx.read_fastx(params.path("8-sealed.fa"))]
+    before = {r.id: r.seq for r in fastx.read_fastx(params.path("8.fa"))}
+    blocks = [(n, b) for n, s in sealed for b in s.split("N")
+              if len(b) >= 500]
+    placed = [gidx.place(b) for _, b in blocks]
+    # an unplaced block: where its halves place, and where the blocks of
+    # its scaffold before sealing (the gaps' flanks) sit in it and on
+    # the genome
+    unplaced, duplications = [], 0
+    for (name, b), p in zip(blocks, placed):
+        if p is not None:
+            continue
+        parts = _flank_parts(b, before.get(name, ""), gidx)
+        dup = _overlap_duplication(parts, len(b), max(SEALER_KS))
+        duplications += dup
+        if len(unplaced) < 3:
+            unplaced.append(dict(gidx.explain(b), scaffold=name, parts=parts,
+                                 overlap_duplication=dup))
+    with open(params.path("8-sealed.fa"), "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    row = dict(phase="sealer", sealer_ks=list(SEALER_KS), wall_s=wall,
+               sealer_s=spans.gross.get("stage_sealer", 0.0),
+               gaps=stats[0].gaps, closed=stats[0].closed,
+               scaffolds=len(sealed),
+               scaffolds_with_gap=sum("N" in s for _, s in sealed),
+               blocks_500=len(blocks),
+               blocks_500_unplaced=sum(p is None for p in placed),
+               blocks_500_overlap_duplications=duplications,
+               unplaced_examples=unplaced,
+               substitutions_500=sum(len(p) for p in placed if p),
+               sha256_8_sealed=sha,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    wrong = row["blocks_500_unplaced"] - duplications
+    check(wrong == 0,
+          f"sealer: {wrong} N-free blocks >= 500 bp of the sealed scaffolds "
+          f"have no ungapped placement on the genome (besides "
+          f"{duplications} whose only fault is a gap between flanks that "
+          f"overlap by fewer than {max(SEALER_KS)} bases, closed by "
+          f"writing the overlap twice)")
+    return row
+
+
+def _flank_parts(block: str, before: str, gidx: GenomeIndex) -> list:
+    """Where the blocks of a scaffold before sealing (the flanks of its
+    gaps) sit in one of its sealed blocks and on the genome: offset and
+    length in the block, strand and start of their placement."""
+    parts = []
+    for q in before.split("N"):
+        where = gidx.locate(q) if len(q) >= 32 and q in block else None
+        if where is not None:
+            parts.append(dict(offset=block.find(q), length=len(q),
+                              strand=where[1], start=where[2]))
+    return parts
+
+
+def _overlap_duplication(parts: list, length: int, limit: int) -> bool:
+    """Whether a sealed block's only departures from the genome are gaps
+    between overlapping flanks that the sealer closed with an empty
+    interior, so that the overlap is written twice (abyss_tpu's
+    `gap/sealer.seal`, ROADMAP section C).  parts: the blocks of the
+    block's scaffold before sealing, each with its offset and length in
+    the block and its strand and start on the genome.  They must cover
+    the block end to end, on one strand; at each junction the next part
+    either starts as far along the genome as along the block, or starts
+    right where the last one ends in the block while on the genome it
+    starts 1 to limit - 1 bases before the last one's end: an overlap
+    shorter than `limit`, never a backward or distant join."""
+    parts = sorted(parts, key=lambda q: q["offset"])
+    if not parts or parts[0]["offset"] != 0 or \
+            parts[-1]["offset"] + parts[-1]["length"] != length or \
+            len({q["strand"] for q in parts}) != 1:
+        return False
+    dup = False
+    for a, b in zip(parts, parts[1:]):
+        if b["start"] - a["start"] == b["offset"] - a["offset"]:
+            continue
+        overlap = a["start"] + a["length"] - b["start"]
+        if b["offset"] == a["offset"] + a["length"] and \
+                b["start"] > a["start"] and 0 < overlap < limit:
+            dup = True
+            continue
+        return False
+    return dup
+
+
+def phase_paired_parity(tmp: str) -> dict:
+    """On the parity phase's reads, on the card and on the CPU, every
+    output byte-identical: `paired-dbg` packed (-k 40 -K 14) and wide
+    (-k 80 -K 40); `pe k=50 K=25` (every artifact); `konnector -k 25` on
+    the first PARITY_KONN_PAIRS pairs with the device engine, with
+    ABYSS_TPU_KONNECTOR=host and with --cascade 2 --extend
+    (ABYSS_TPU_KONN_FILTER=cascade); and `pe sealer_ks="31 25"` resumed
+    from the pe_parity phase's stage 8."""
+    from abyss_tpu_torch.cli import tools2
+    from abyss_tpu_torch.pipeline import pe
+    paths = [os.path.join(tmp, "p1.fq"), os.path.join(tmp, "p2.fq")]
+    sub = [os.path.join(tmp, f"pk{i}.fq") for i in (1, 2)]
+    for src, dst in zip(paths, sub):
+        _head_fastq(src, dst, PARITY_KONN_PAIRS)
+
+    def paired(kk, KK):
+        def run(out, dev):
+            os.makedirs(out)
+            tools2.paireddbg_main([*paths, "-k", kk, "-K", KK, "-o",
+                                   os.path.join(out, "out.fa"), "--device",
+                                   dev])
+        return run
+
+    def pe_paired(out, dev):
+        params = _pe_params("par", paths, out, dev)
+        params.k, params.K = 50, 25
+        pe.run(params)
+
+    engines = {}
+
+    def konn(name, opts, env=None):
+        def run(out, dev):
+            os.makedirs(out)
+            cap = KonnCapture()
+            with cap.wrapped():
+                _run_konnector([*sub, "-k", "25", *opts, "-o",
+                                os.path.join(out, "konn"), "--device", dev],
+                               env)
+            engines[name, dev] = cap.fields()
+        return run
+
+    def sealed(out, dev):
+        src = os.path.join(tmp, "pe_parity_cuda")
+        shutil.copytree(src, out, symlinks=True)
+        params = _pe_params("par", paths, out, dev)
+        params.sealer_ks = [31, 25]
+        pe.run(params)
+
+    runs = {"paired_packed_k40_K14": paired("40", "14"),
+            "paired_wide_k80_K40": paired("80", "40"),
+            "pe_k50_K25": pe_paired,
+            "konnector_device": konn("konnector_device", []),
+            "konnector_host": konn("konnector_host", [],
+                                   {"ABYSS_TPU_KONNECTOR": "host"}),
+            "konnector_cascade_extend": konn(
+                "konnector_cascade_extend", ["--cascade", "2", "--extend"],
+                {"ABYSS_TPU_KONN_FILTER": "cascade"}),
+            "pe_sealer_ks": sealed}
+    row = dict(phase="paired_parity", identical=True, runs={})
+    for name, fn in runs.items():
+        trees, times = {}, {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"paired_parity_{name}_{device}")
+            t0 = time.perf_counter()
+            fn(out, device)
+            times[device] = time.perf_counter() - t0
+            trees[device] = _tree_bytes(out)
+        gpu, cpu = trees["cuda"], trees["cpu"]
+        differ = sorted(n for n in set(gpu) | set(cpu)
+                        if gpu.get(n) != cpu.get(n))
+        check(not differ, f"paired parity {name}: GPU and CPU outputs "
+                          f"differ: {differ}")
+        first = gpu.get("out.fa", gpu.get("par-1.fa",
+                                          gpu.get("konn_merged.fa", b"")))
+        if name == "pe_sealer_ks":
+            first = gpu.get("par-8-sealed.fa", b"")
+        check(first.count(b">") > 0, f"paired parity {name}: empty output")
+        row["runs"][name] = dict(files=len(gpu), gpu_s=times["cuda"],
+                                 cpu_s=times["cpu"])
+        if (name, "cuda") in engines:
+            row["runs"][name]["engines"] = engines[name, "cuda"]
+    check(engines["konnector_device", "cuda"]["chunks_device"] > 0,
+          "paired parity: the konnector device engine finished no chunk")
+    return row
+
+
+# the phases `python3 chip_smoke.py NAME ...` runs alone, each with the
+# phases it needs run first ("main" includes the ntHash shape timings;
+# "walk" the walk and look-ahead rows of the main path; "bloom" the
+# scatter-max replay, the bloom walk rows and the bloom tool;
+# "konnector_cascade" the replay of its walks)
+PHASES = {"kernel": (), "parity": (), "main": ("kernel",),
+          "walk": ("main",), "bloom": ("main",), "pe_parity": ("parity",),
+          "pe": (), "exact_parity": ("parity",), "exact_pe": (), "wide": (),
+          "paired": (), "konnector": (), "konnector_cascade": (),
+          "sealer": ("pe",), "paired_parity": ("pe_parity",)}
+# the phases that read the 4.6 Mbp fixture (make_fixture)
+FIXTURE_PHASES = {"main", "bloom", "pe", "exact_pe", "wide", "paired",
+                  "konnector", "konnector_cascade", "sealer"}
+
+
+def phases_to_run(names) -> list:
+    """The named phases and, before them, those they need, in the order
+    of a whole run; all of them when none is named."""
+    want = set()
+
+    def add(name):
+        if name not in want:
+            want.add(name)
+            for pre in PHASES[name]:
+                add(pre)
+
+    for name in names or PHASES:
+        add(name)
+    return [name for name in PHASES if name in want]
+
+
+def main(argv=None) -> int:
+    names = sys.argv[1:] if argv is None else list(argv)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        log(f"unknown phases {unknown}: name some of {' '.join(PHASES)}, "
+            f"or none for the whole run")
+        return 2
     if not os.path.isdir(os.path.join(REPO, "abyss_tpu_torch")):
         log("abyss_tpu_torch/ not found beside this script: run it from a "
             "checkout of the repository")
@@ -1584,56 +2436,104 @@ def main() -> int:
         log("no CUDA device: this smoke run needs one GPU")
         return 2
     sys.path.insert(0, REPO)
+    run = set(phases_to_run(names))
 
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO)
     try:
         emit(phase_header())
         emit(phase_build())
-        row, kern = phase_kernel()
-        emit(row)
-        emit(phase_parity(tmp))
-        main_row, (wf, paths, params), genome, launched = phase_main(tmp)
-        row, nthash_shapes, nthash_gap = phase_nthash_shapes(launched, kern)
-        emit(row)
-        del launched
-        walk, walked = phase_walk(wf, paths, params)
-        emit(walk)
-        branch = phase_branch(*walked)
-        emit(branch)
-        del wf, walked
+        if "kernel" in run:
+            row, kern = phase_kernel()
+            emit(row)
+        if "parity" in run:
+            emit(phase_parity(tmp))
+        if run & FIXTURE_PHASES:
+            fx = make_fixture(tmp)
+            genome, paths = fx["genome"], fx["paths"]
+        if "main" in run:
+            main_row, (wf, _, params), launched = phase_main(fx)
+            row, nthash_shapes, nthash_gap = phase_nthash_shapes(launched,
+                                                                 kern)
+            emit(row)
+            launched = None
+        if "walk" in run:
+            walk, walked = phase_walk(wf, paths, params)
+            emit(walk)
+            branch = phase_branch(*walked)
+            emit(branch)
+        wf = walked = None
         torch.cuda.empty_cache()
-        bloom_row, cbf, bparams, capture = phase_bloom(paths, genome,
-                                                       main_row)
-        scatter = phase_scatter(capture)
-        emit(scatter)
-        del capture
-        walk_bloom, walked = phase_walk(cbf, paths, bparams)
-        emit(walk_bloom)
-        branch_bloom = phase_branch(*walked)
-        emit(branch_bloom)
-        del walked
-        emit(phase_bloom_tool(tmp, paths, cbf))
-        del cbf
-        torch.cuda.empty_cache()
-        emit(phase_pe_parity(tmp))
-        pe_row, pe_recorded = phase_pe(tmp, paths, genome)
-        pe_shapes = phase_pe_shapes(pe_recorded)
-        emit(pe_shapes)
-        del pe_recorded
-        emit(phase_exact_parity(tmp))
-        exact_row = phase_exact_pe(tmp, paths, genome)
-        wide_row, wide_recorded = phase_wide(tmp, paths, genome)
-        wide_shapes = phase_wide_shapes(wide_recorded)
-        emit(wide_shapes)
-        del wide_recorded
+        if "bloom" in run:
+            bloom_row, cbf, bparams, capture = phase_bloom(paths, genome,
+                                                           main_row)
+            scatter = phase_scatter(capture)
+            emit(scatter)
+            capture = None
+            walk_bloom, walked = phase_walk(cbf, paths, bparams)
+            emit(walk_bloom)
+            branch_bloom = phase_branch(*walked)
+            emit(branch_bloom)
+            walked = None
+            emit(phase_bloom_tool(tmp, paths, cbf))
+            cbf = None
+            torch.cuda.empty_cache()
+        if "pe_parity" in run:
+            emit(phase_pe_parity(tmp))
+        if "pe" in run:
+            pe_row, pe_recorded = phase_pe(tmp, paths, genome)
+            pe_shapes = phase_shapes(pe_recorded, "nthash_pe_shapes")
+            emit(pe_shapes)
+            pe_recorded = None
+        if "exact_parity" in run:
+            emit(phase_exact_parity(tmp))
+        if "exact_pe" in run:
+            exact_row = phase_exact_pe(tmp, paths, genome)
+        if "wide" in run:
+            wide_row, wide_recorded = phase_wide(tmp, paths, genome)
+            wide_shapes = phase_wide_shapes(wide_recorded)
+            emit(wide_shapes)
+            wide_recorded = None
+        if "paired" in run:
+            paired_row, paired_recorded = phase_paired(tmp, paths, genome)
+            paired_shapes = phase_shapes(paired_recorded,
+                                         "nthash_paired_shapes")
+            emit(paired_shapes)
+            paired_recorded = None
+            torch.cuda.empty_cache()
+        if run & {"konnector", "sealer"}:
+            gidx = GenomeIndex(genome)
+        if "konnector" in run:
+            konn_row, konn_recorded = phase_konnector(tmp, genome, gidx)
+            konn_shapes = phase_shapes(konn_recorded,
+                                       "nthash_konnector_shapes")
+            emit(konn_shapes)
+            konn_recorded = None
+        if "konnector_cascade" in run:
+            casc_row, casc_calls = phase_konnector_cascade(tmp, genome)
+            walk_cascade, branch_cascade = phase_replay_walks(
+                casc_calls, casc_row["launches"])
+            emit(walk_cascade)
+            emit(branch_cascade)
+            casc_calls = None
+            torch.cuda.empty_cache()
+        if "sealer" in run:
+            phase_sealer(tmp, paths, gidx)
+        if "paired_parity" in run:
+            emit(phase_paired_parity(tmp))
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    if run != set(PHASES):
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     # launches: each kernel's count on the path that runs it (main for the
-    # sorted filter's kernels, bloom for the counting filter's).  No single
+    # sorted filter's kernels, bloom for the counting filter's, the
+    # konnector cascade run for the cascading filter's).  No single
     # PyTorch call computes ntHash, the walks or the look-aheads
     # (library_ms null); walk and branch replace jnp loops of
     # abyss_tpu/dbg/extend.py, not Pallas kernels
@@ -1646,8 +2546,12 @@ def main() -> int:
     kern.update(shapes=nthash_shapes, gap_ms_main_run=nthash_gap,
                 gap_ms_pe_run=pe_shapes["gap_ms"],
                 gap_ms_wide_run=wide_shapes["gap_ms"],
+                gap_ms_paired_run=paired_shapes["gap_ms"],
                 launches_exact_pe=exact_row["launches"]["nthash"],
-                launches_wide=wide_row["launches"]["nthash"])
+                launches_wide=wide_row["launches"]["nthash"],
+                launches_paired=paired_row["launches"]["nthash"],
+                launches_konnector=konn_row["launches"]["nthash"])
+    scatter.update(launches_konnector=casc_row["launches"]["scatter_max"])
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=path["launches"][name],
@@ -1656,7 +2560,9 @@ def main() -> int:
         bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
         **{n: rec[n] for n in ("flush_ms", "shapes", "gap_ms_main_run",
                                "gap_ms_pe_run", "gap_ms_wide_run",
-                               "launches_exact_pe", "launches_wide")
+                               "gap_ms_paired_run", "launches_exact_pe",
+                               "launches_wide", "launches_paired",
+                               "launches_konnector")
            if n in rec},
         **({"launches_pe": pe_row["launches"][name]}
            if name in ("nthash", "walk", "branch") else {}))
@@ -1669,7 +2575,10 @@ def main() -> int:
              "abyss_tpu/ops/pallas_scatter.py:187", bloom_row, scatter),
             ("walk_bloom", walk_cu, fast_extend, bloom_row, walk_bloom),
             ("branch_bloom", walk_cu, branch_depths, bloom_row,
-             branch_bloom))]})
+             branch_bloom),
+            ("walk_cascade", walk_cu, fast_extend, casc_row, walk_cascade),
+            ("branch_cascade", walk_cu, branch_depths, casc_row,
+             branch_cascade))]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

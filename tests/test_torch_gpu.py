@@ -9,6 +9,7 @@ csrc/); without one they skip.  Run them on the card with
 machine need not have.)
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -98,8 +99,17 @@ def test_nthash_kernel_refuses_bad_layout(cuda):
 
 def walk_filter(seqs, k, min_cov, bloom, cuda):
     """The sorted filter's walk table of seqs' k-mers, or (bloom) a
-    counting Bloom filter of them small enough to have false positives;
-    returns it and the name of the kernels' launch count."""
+    counting Bloom filter of them small enough to have false positives,
+    or (bloom="cascade") a depth-2 cascading Bloom filter as small, the
+    k-mers inserted 3 - min_cov times; returns it and the suffix of the
+    kernels' launch count."""
+    if bloom == "cascade":
+        f = tbloom.CascadingBloomFilter.create(1 << 16, k, 3, 2, cuda)
+        for _ in range(3 - min_cov):
+            for s in seqs:
+                f.insert(*nthash.canonical_hashes(
+                    torch.from_numpy(alphabet.encode(s)[None]).to(cuda), k))
+        return f, "_cascade"
     if bloom:
         f = tbloom.CountingBloomFilter.create(1 << 17, k, 3, min_cov, cuda)
         add = f.insert
@@ -122,6 +132,11 @@ def test_walk_kernel_matches_plain(cuda, max_steps):
 @pytest.mark.parametrize("max_steps", [1, 50, 2000])
 def test_walk_bloom_kernel_matches_plain(cuda, max_steps):
     check_walk(cuda, max_steps, bloom=True)
+
+
+@pytest.mark.parametrize("max_steps", [1, 50, 2000])
+def test_walk_cascade_kernel_matches_plain(cuda, max_steps):
+    check_walk(cuda, max_steps, bloom="cascade")
 
 
 @pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
@@ -182,7 +197,13 @@ def test_branch_bloom_kernel_matches_plain(cuda, max_depth, width):
     check_branch(cuda, max_depth, width, bloom=True)
 
 
-@pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
+@pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
+def test_branch_cascade_kernel_matches_plain(cuda, max_depth, width):
+    check_branch(cuda, max_depth, width, bloom="cascade")
+
+
+@pytest.mark.parametrize("bloom", [False, True, "cascade"],
+                         ids=["table", "bloom", "cascade"])
 @pytest.mark.parametrize("k,max_depth,width", [
     (11, 20, 1), (11, 20, 2), (11, 20, 3), (11, 30, 24), (11, 30, 40),
     (11, 30, 200), (11, 400, 16)])
@@ -525,3 +546,66 @@ def test_chain_programs_on_card_match_cpu(cuda):
             ov_s[:a], start[:a])]
     for a, b in zip(res["cuda"], res["cpu"]):
         assert torch.equal(a, b)
+
+
+def test_hash_insert_on_card_matches_cpu(cuda):
+    """ops/hash_probe.insert with racing duplicate keys and crowded
+    windows: the same tables and failure count on the card as on the
+    CPU (the highest lane wins a slot on both)."""
+    from abyss_tpu_torch.ops import hash_probe as hp
+    rng = np.random.default_rng(2)
+    pool = rng.integers(-(1 << 62), 1 << 62, 300)
+    for size, n in ((64, 3000), (1 << 14, 200000)):
+        keys = torch.from_numpy(rng.choice(pool, n))
+        vals = torch.arange(n, dtype=torch.int64)
+        live = torch.from_numpy(rng.random(n) < 0.8)
+        tab = torch.full((size + hp.B,), -1, dtype=torch.int64)
+        vtab = torch.full((size + hp.B,), -1, dtype=torch.int32)
+        want = hp.insert(tab, vtab, keys, vals, live)
+        got = hp.insert(tab.to(cuda), vtab.to(cuda), keys.to(cuda),
+                        vals.to(cuda), live.to(cuda))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k,K", [(14, 40), (16, 32), (31, 80)])
+def test_paired_dbg_on_card_matches_cpu(cuda, k, K):
+    """The paired DBG (packed and wide, the zero gap at K = 2k) on the
+    card and the CPU: the same contigs; the wide mode launches ntHash."""
+    from abyss_tpu_torch.dbg import paired_dbg
+    reads = exact_reads(k)
+    batches = [reads[:300], reads[300:]]
+    launched = kernels.launches["nthash"]
+    got = paired_dbg.assemble_pairs(batches, k, K, device="cuda")
+    assert (kernels.launches["nthash"] > launched) == (k > 16)
+    assert got == paired_dbg.assemble_pairs(batches, k, K, device="cpu")
+    assert got
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_konnector_on_card_matches_cpu(cuda, engine, monkeypatch):
+    """connect_pairs_full on error-laden pairs, on the sorted filter
+    under both engines and on a cascading Bloom filter: the same results
+    on the card as on the CPU."""
+    from abyss_tpu_torch.gap import konnector
+    monkeypatch.setenv("ABYSS_TPU_KONNECTOR", engine)
+    genome = sim.genome_with_repeats(6000, seed=7, n_repeats=3,
+                                     repeat_len=300)
+    pr = sim.simulate_paired_reads(genome, coverage=15, read_len=100,
+                                   error_rate=0.005, seed=8)
+    pairs = [(a[1], b[1]) for a, b in zip(pr.reads1, pr.reads2)][:300]
+    seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctr = tsf.SortedKmerCounter(21, 2)
+        casc = tbloom.CascadingBloomFilter.create(1 << 20, 21, depth=2,
+                                                  device=dev)
+        for s in seqs:
+            c = torch.from_numpy(alphabet.encode(s)[None]).to(dev)
+            ctr.add(*nthash.canonical_hashes(c, 21))
+            casc.insert(*nthash.canonical_hashes(c, 21))
+        out[dev] = [[dataclasses.astuple(r) for r in
+                     konnector.connect_pairs_full(f, pairs, 21, chunk=128)]
+                    for f in (ctr.finalize(dev), casc)]
+    assert out["cuda"] == out["cpu"]
+    assert any(r[2] == "FOUND_PATH" for r in out["cpu"][0])

@@ -65,9 +65,13 @@ def build_harness():
     lib.branch_bloom_host.restype = None
     lib.branch_bloom_host.argtypes = [P_, I64, I, P_, P_, P_, I64, I, I, I,
                                       I, I, I, P_, P_]
+    lib.branch_cascade_host.restype = None
+    lib.branch_cascade_host.argtypes = lib.branch_bloom_host.argtypes
+    lib.walk_cascade_host.restype = None
     lib.walk_bloom_host.restype = None
     lib.walk_bloom_host.argtypes = [P_, I64, I64, P_, P_, P_, P_, P_, P_, P_,
                                     I64, I, I, I, I, I64]
+    lib.walk_cascade_host.argtypes = lib.walk_bloom_host.argtypes
     lib.scatter_max_host.restype = None
     lib.scatter_max_host.argtypes = [P_, I64, P_, P_, I64]
     return lib
@@ -254,7 +258,16 @@ def test_nthash_layout_choice(B, L, k, layout):
 def walk_filter(seqs, k, min_cov=1, bloom=False):
     """The walk filter of seqs' k-mers: the sorted filter's walk table,
     or (bloom=True) a counting Bloom filter small enough that false
-    positives make extra branches (a few percent on the read sets)."""
+    positives make extra branches (a few percent on the read sets), or
+    (bloom="cascade") a depth-2 cascading Bloom filter as small, the
+    k-mers inserted 3 - min_cov times."""
+    if bloom == "cascade":
+        f = tbloom.CascadingBloomFilter.create(1 << 16, k, 3, 2, "cpu")
+        for _ in range(3 - min_cov):
+            for s in seqs:
+                codes = torch.from_numpy(alphabet.encode(s)[None])
+                f.insert(*tnt.canonical_hashes(codes, k))
+        return f
     if bloom:
         f = tbloom.CountingBloomFilter.create(1 << 17, k, 3, min_cov, "cpu")
         add = f.insert
@@ -270,6 +283,9 @@ def walk_filter(seqs, k, min_cov=1, bloom=False):
 def solid_args(wf):
     """The harness's solidity arguments for a walk filter (the numpy
     arrays are returned too, to keep them alive)."""
+    if isinstance(wf, tbloom.CascadingBloomFilter):
+        levels = wf.levels.numpy().copy()
+        return levels, [ptr(levels), wf.size, wf.k, wf.num_hashes, wf.depth]
     if isinstance(wf, tbloom.CountingBloomFilter):
         counters = wf.counters.numpy().copy()
         return counters, [ptr(counters), wf.size, wf.k, wf.num_hashes,
@@ -287,8 +303,11 @@ def harness_walk(harness, wf, st, k, max_steps):
              has_prev=st.has_prev.numpy().astype(np.uint8))
     seed = u64.to_numpy(st.seed_canon).copy()
     keep, args = solid_args(wf)
-    fn = harness.walk_bloom_host if isinstance(
-        wf, tbloom.CountingBloomFilter) else harness.walk_host
+    fn = harness.walk_host
+    if isinstance(wf, tbloom.CountingBloomFilter):
+        fn = harness.walk_bloom_host
+    elif isinstance(wf, tbloom.CascadingBloomFilter):
+        fn = harness.walk_cascade_host
     P, BUF = s["buf"].shape
     fn(ptr(s["buf"]), P, BUF, ptr(s["length"]), ptr(s["f"]), ptr(s["r"]),
        ptr(s["status"]), ptr(seed), ptr(s["has_prev"]), *args, k, max_steps)
@@ -322,6 +341,12 @@ def test_walk_bloom_body_matches_plain_on_forks(harness, max_steps, warm):
     check_walk_on_forks(harness, max_steps, warm, bloom=True)
 
 
+@pytest.mark.parametrize("max_steps", [1, 7, 200])
+@pytest.mark.parametrize("warm", [False, True])
+def test_walk_cascade_body_matches_plain_on_forks(harness, max_steps, warm):
+    check_walk_on_forks(harness, max_steps, warm, bloom="cascade")
+
+
 def check_walk_on_forks(harness, max_steps, warm, bloom):
     """Forks, joins, a dead end and a cycle; lanes stop at every status."""
     k = 11
@@ -348,6 +373,12 @@ def test_walk_body_matches_plain_on_reads(harness, max_steps, buf_extra):
 def test_walk_bloom_body_matches_plain_on_reads(harness, max_steps,
                                                 buf_extra):
     check_walk_on_reads(harness, max_steps, buf_extra, bloom=True)
+
+
+@pytest.mark.parametrize("max_steps,buf_extra", [(300, 200), (40, 10)])
+def test_walk_cascade_body_matches_plain_on_reads(harness, max_steps,
+                                                  buf_extra):
+    check_walk_on_reads(harness, max_steps, buf_extra, bloom="cascade")
 
 
 @pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
@@ -392,8 +423,11 @@ def harness_branch(harness, wf, roots, k, max_depth, width):
     f0, r0 = tnt.hash_base(torch.from_numpy(roots), k)
     f0, r0 = u64.to_numpy(f0).copy(), u64.to_numpy(r0).copy()
     keep, args = solid_args(wf)
-    fn = harness.branch_bloom_host if isinstance(
-        wf, tbloom.CountingBloomFilter) else harness.branch_host
+    fn = harness.branch_host
+    if isinstance(wf, tbloom.CountingBloomFilter):
+        fn = harness.branch_bloom_host
+    elif isinstance(wf, tbloom.CascadingBloomFilter):
+        fn = harness.branch_cascade_host
     depth = np.zeros(N, np.int32)
     probes = np.zeros(N, np.int64)
     fn(ptr(roots), N, k, ptr(f0), ptr(r0), *args, max_depth, width,
@@ -459,6 +493,12 @@ def test_branch_bloom_body_matches_plain(harness, k, max_depth, width):
     check_branch(harness, k, max_depth, width, bloom=True)
 
 
+@pytest.mark.parametrize("k,max_depth,width", [
+    (25, 25, 16), (11, 11, 2), (11, 30, 4), (11, 30, 40)])
+def test_branch_cascade_body_matches_plain(harness, k, max_depth, width):
+    check_branch(harness, k, max_depth, width, bloom="cascade")
+
+
 @pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
 @pytest.mark.parametrize("k,max_depth,width", [
     (11, 20, 1), (11, 20, 2), (11, 20, 3), (11, 30, 24), (11, 30, 40)])
@@ -517,13 +557,15 @@ def check_branch(harness, k, max_depth, width, bloom):
 
 def test_walk_wrappers_refuse_cpu_tensors():
     """On CPU tensors the walk kernels' wrappers raise and count
-    nothing, with the walk table and with a counting Bloom filter."""
+    nothing, with the walk table, a counting Bloom filter and a cascading
+    Bloom filter."""
     k = 5
     st = text.init_state(np.zeros((4, k), np.uint8), k + 8, k, "cpu")
     tab = torch.full((1024 + 8,), -1, dtype=torch.int64)
     cbf = tbloom.CountingBloomFilter.create(1024, k, device="cpu")
+    cascade = tbloom.CascadingBloomFilter.create(1024, k, device="cpu")
     launched = dict(kernels.launches)
-    for solid in (tab, cbf):
+    for solid in (tab, cbf, cascade):
         with pytest.raises(ValueError):
             kernels.walk(solid, st.buf, st.length, st.f, st.r, st.status,
                          st.seed_canon, st.has_prev, k, 10)

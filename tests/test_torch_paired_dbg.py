@@ -1,0 +1,283 @@
+"""The port's paired DBG (dbg/paired_dbg.py) against abyss_tpu's, on
+the CPU, bit for bit (integers throughout: the tolerance is exact).
+
+The cases of tests/test_pipeline.py::test_paired_dbg_wide_mode_matches_packed
+and ::test_paired_dbg_large_k as parity cases, error-laden reads at
+k = 16 (pairs that set bit 63) and at the zero gap K = 2k, a genome
+with rc-palindromic pair windows, and each device function of the
+packed and wide modes against its JAX function, with argmax ties in
+the successor links.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from abyss_tpu import sim
+from abyss_tpu.core import alphabet
+from abyss_tpu.dbg import paired_dbg as J
+from abyss_tpu_torch import u64
+from abyss_tpu_torch.dbg import paired_dbg as T
+from tests.test_torch_hash_dbg import as_int, as_u64, random_reads
+
+torch.set_num_threads(1)
+
+
+def tiled_reads(genome: str, L: int, step: int = 3) -> np.ndarray:
+    reads = [genome[s:s + L] for s in range(0, len(genome) - L, step)]
+    codes = np.full((len(reads), L), 4, np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, :len(r)] = alphabet.encode(r)
+    return codes
+
+
+def palindromic_genome(n: int, seed: int) -> str:
+    """A random genome with rc-palindromes of 16 and 40 bases inside."""
+    g = sim.random_genome(n, seed=seed)
+    p8 = sim.random_genome(8, seed=seed + 1)
+    p20 = sim.random_genome(20, seed=seed + 2)
+    pal = p8 + alphabet.revcomp(p8)
+    pal2 = p20 + alphabet.revcomp(p20)
+    return g[:n // 3] + pal + g[n // 3:2 * n // 3] + pal2 + g[2 * n // 3:]
+
+
+def _t(codes):
+    return torch.from_numpy(np.ascontiguousarray(codes, np.uint8))
+
+
+def assert_tables(jt, tt, fields):
+    for f in fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jt, f)),
+                                      np.asarray(getattr(tt, f)), err_msg=f)
+
+
+# --------------------------------------------------------------------------
+# whole assemblies
+
+
+def _cases():
+    wide_vs_packed = tiled_reads(sim.random_genome(1200, seed=50), 70)
+    large_k = tiled_reads(sim.random_genome(2000, seed=51), 80)
+    pal = tiled_reads(palindromic_genome(1500, 52), 90, step=2)
+    err = random_reads(53, n=700, L=100, glen=2500, err=0.004,
+                       n_rate=0.001)
+    return {
+        "pipeline_packed_k14_K40": (wide_vs_packed, 14, 40, 1),
+        "pipeline_large_k25_K50": (large_k, 25, 50, 1),
+        "palindromes_k8_K30": (pal, 8, 30, 1),
+        "palindromes_k20_K40_zero_gap": (pal, 20, 40, 1),
+        "errors_k16_K32_zero_gap": (err, 16, 32, 2),
+        "errors_k16_K48": (err, 16, 48, 2),
+        "errors_k31_K80": (err, 31, 80, 2),
+    }
+
+
+@pytest.mark.parametrize("case", list(_cases()))
+def test_assemble_pairs_matches_jax(case):
+    codes, k, K, kc = _cases()[case]
+    want = J.assemble_pairs([codes], k, K, kc=kc)
+    got = T.assemble_pairs([codes], k, K, kc=kc, device="cpu")
+    assert got == want
+    assert want
+
+
+@pytest.mark.parametrize("case", ["pipeline_packed_k14_K40",
+                                  "palindromes_k8_K30",
+                                  "errors_k16_K32_zero_gap"])
+def test_assemble_pairs_wide_matches_jax(case):
+    """Wide mode at k <= 16 too, as test_paired_dbg_wide_mode_matches_packed
+    runs it."""
+    codes, k, K, kc = _cases()[case]
+    want = J.assemble_pairs_wide([codes], k, K, kc=kc)
+    info = {}
+    got = T.assemble_pairs_wide([codes], k, K, kc=kc, device="cpu",
+                                info=info)
+    assert got == want
+    assert info["rows"] >= info["rows_kc"] > 0
+    assert {"count", "kc filter", "fill", "probe", "trim", "chains",
+            "emission"} <= set(info)
+
+
+def test_assemble_pairs_tip_len_and_batches():
+    codes, k, K, kc = _cases()["errors_k16_K48"]
+    batches = [codes[:300], codes[300:]]
+    for tip in (0, 5):
+        assert T.assemble_pairs(batches, k, K, kc=kc, tip_len=tip,
+                                device="cpu") == \
+            J.assemble_pairs(batches, k, K, kc=kc, tip_len=tip)
+    codes, k, K, kc = _cases()["errors_k31_K80"]
+    batches = [codes[:250], codes[250:]]
+    assert T.assemble_pairs(batches, k, K, kc=kc, tip_len=0,
+                            device="cpu") == \
+        J.assemble_pairs(batches, k, K, kc=kc, tip_len=0)
+
+
+def test_assemble_pairs_errors():
+    codes = np.zeros((2, 40), np.uint8)
+    for fn in (J.pack_pairs, T.pack_pairs):
+        arg = jnp.asarray(codes) if fn is J.pack_pairs else _t(codes)
+        with pytest.raises(ValueError):
+            fn(arg, 17, 40)
+        with pytest.raises(ValueError):
+            fn(arg, 12, 20)
+        with pytest.raises(ValueError):
+            fn(arg, 10, 41)
+
+
+# --------------------------------------------------------------------------
+# packed-mode device functions
+
+
+@pytest.mark.parametrize("k,K", [(16, 40), (16, 32), (9, 25)])
+def test_pack_pairs_matches_jax(k, K):
+    codes = random_reads(60 + k, n=40, L=90, n_rate=0.01)
+    jo = J.pack_pairs(jnp.asarray(codes), k, K)
+    to = T.pack_pairs(_t(codes), k, K)
+    for ja, ta in zip(jo[:3], to[:3]):
+        np.testing.assert_array_equal(as_u64(ja), as_u64(ta))
+    np.testing.assert_array_equal(np.asarray(jo[3]), to[3].numpy())
+    if k == 16:   # pairs of k = 16 fill all 64 bits
+        assert (as_u64(to[2]) >> np.uint64(63)).any()
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_rc_pair_matches_jax(k):
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 1 << (4 * k) if k < 16 else 2**64 - 1, 500,
+                     dtype=np.uint64)
+    np.testing.assert_array_equal(
+        np.asarray(J._rc_pair(jnp.asarray(x), k)),
+        as_u64(T._rc_pair(u64.from_numpy(x), k)))
+
+
+@pytest.mark.parametrize("k,K,kc", [(16, 40, 2), (16, 32, 1), (8, 30, 1)])
+def test_count_and_adjacency_match_jax(k, K, kc):
+    codes = _cases()["errors_k16_K32_zero_gap"][0] if k == 16 else \
+        _cases()["palindromes_k8_K30"][0]
+    batches = [codes[:200], codes[200:]]
+    jt = J.count_pairs(batches, k, K)
+    tt = T.count_pairs(batches, k, K, device="cpu")
+    assert_tables(jt, tt, ["kmers", "counts", "alive"])
+    jt.alive &= jt.counts >= kc
+    tt.alive &= tt.counts >= kc
+    np.testing.assert_array_equal(J.build_pair_adjacency(jt, k),
+                                  T.build_pair_adjacency(tt, k))
+
+
+# --------------------------------------------------------------------------
+# wide-mode device functions
+
+
+def test_mix_pair_matches_jax():
+    rng = np.random.default_rng(3)
+    x, y = (rng.integers(0, 2**64 - 1, 1000, dtype=np.uint64)
+            for _ in range(2))
+    np.testing.assert_array_equal(
+        np.asarray(J._mix_pair(jnp.asarray(x), jnp.asarray(y))),
+        as_u64(T._mix_pair(u64.from_numpy(x), u64.from_numpy(y))))
+    jf = J._pair_fp(*(jnp.asarray(a) for a in (x, y, y, x)))
+    tf = T._pair_fp(*(u64.from_numpy(a) for a in (x, y, y, x)))
+    for ja, ta in zip(jf, tf):
+        np.testing.assert_array_equal(np.asarray(ja), as_u64(ta))
+
+
+@pytest.mark.parametrize("k,K", [(20, 50), (31, 62)])
+def test_pair_batches_match_jax(k, K):
+    codes = random_reads(70 + k, n=30, L=100, n_rate=0.01)
+    np.testing.assert_array_equal(
+        np.asarray(J._pair_canon_batch(jnp.asarray(codes), k, K)),
+        as_u64(T._pair_canon_batch(_t(codes), k, K)))
+    jo = J._pair_fill_batch(jnp.asarray(codes), k, K)
+    to = T._pair_fill_batch(_t(codes), k, K)
+    for ja, ta in zip(jo, to):
+        if ta.dtype == torch.bool:
+            np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+        else:
+            np.testing.assert_array_equal(np.asarray(ja), as_u64(ta))
+
+
+WIDE_FIELDS = ["keys", "counts", "alive", "fa", "ra", "fb", "rb", "text"]
+
+
+@pytest.fixture(scope="module")
+def wide_tables():
+    codes, k, K, kc = _cases()["errors_k31_K80"]
+    batches = [codes[:300], codes[300:]]
+    jt = J.count_pairs_wide(batches, k, K, kc=kc)
+    tt = T.count_pairs_wide(batches, k, K, kc=kc, device="cpu")
+    return jt, tt
+
+
+def test_count_pairs_wide_matches_jax(wide_tables):
+    jt, tt = wide_tables
+    assert_tables(jt, tt, WIDE_FIELDS)
+    assert tt.n > 100 and tt.text.any()
+
+
+@pytest.mark.parametrize("zero_gap", [False, True])
+def test_pair_probe_matches_jax(wide_tables, zero_gap):
+    jt, tt = wide_tables
+    jn, jts = J._pair_probe_dev(jt, zero_gap)
+    tn, tts = T._pair_probe_dev(tt, zero_gap, torch.device("cpu"))
+    np.testing.assert_array_equal(as_int(jn), as_int(tn))
+    np.testing.assert_array_equal(np.asarray(jts).astype(np.int64),
+                                  as_int(tts))
+    # the columns that really found a neighbour
+    assert (as_int(tn) >= 0).sum() > tt.n // 4
+
+
+def test_probe_col_hashes_match_jax(wide_tables):
+    jt, tt = wide_tables
+    ends = J._pair_end_bases(jt)
+    for ci in (0, 7, 16, 31):
+        right = ci < 16
+        c1, c2 = (ci % 16) >> 2, ci & 3
+        ja, jb = (ends[0], ends[2]) if right else (ends[1], ends[3])
+        jo = J._probe_col_hashes(
+            jt.k, right, *(jnp.asarray(getattr(jt, f))
+                           for f in ("fa", "ra", "fb", "rb")),
+            jnp.asarray(ja), jnp.asarray(jb), c1, c2)
+        to = T._probe_col_hashes(
+            tt.k, right, *(u64.from_numpy(getattr(tt, f))
+                           for f in ("fa", "ra", "fb", "rb")),
+            torch.from_numpy(ja), torch.from_numpy(jb), c1, c2)
+        for x, y in zip(jo, to):
+            np.testing.assert_array_equal(np.asarray(x), as_u64(y))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nxt_pair_matches_jax_with_ties(seed):
+    """Random links over few rows, so that one target sits in several
+    columns (argmax ties: the first maximum must win), with palindromic
+    and dead rows."""
+    rng = np.random.default_rng(seed)
+    N = 40
+    nbr = np.full((32, N), -1, np.int32)
+    for row in range(N):
+        for lo in (0, 16):
+            cols = rng.choice(16, 1 + (rng.random() < 0.3), replace=False)
+            nbr[lo + cols, row] = rng.integers(0, N)   # 2 columns: a tie
+    ts = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+    palin = rng.random(N) < 0.1
+    alive = rng.random(N) < 0.9
+    want = J._nxt_pair(jnp.asarray(nbr), jnp.asarray(ts),
+                       jnp.asarray(palin), jnp.asarray(alive))
+    got = T._nxt_pair(torch.from_numpy(nbr.astype(np.int64)),
+                      torch.from_numpy(ts.astype(np.int64)),
+                      torch.from_numpy(palin), torch.from_numpy(alive))
+    np.testing.assert_array_equal(as_int(want), as_int(got))
+    assert (as_int(got) >= 0).any()
+
+
+@pytest.mark.parametrize("max_tip", [0, 1, 80])
+def test_device_pair_dbg_matches_jax(wide_tables, max_tip):
+    jt, tt = wide_tables
+    jd = J.DevicePairDBG(jt, zero_gap=False)
+    td = T.DevicePairDBG(tt, zero_gap=False)
+    np.testing.assert_array_equal(np.asarray(jd.palin_d), td.palin_d.numpy())
+    assert jd.trim(max_tip) == td.trim(max_tip)
+    np.testing.assert_array_equal(np.asarray(jd.alive_d), td.alive_d.numpy())
+    for ja, ta in zip(jd.chains(), td.chains()):
+        np.testing.assert_array_equal(np.asarray(ja).astype(np.int64),
+                                      np.asarray(ta).astype(np.int64))

@@ -218,9 +218,7 @@ def test_cli_resumes_and_prints_stats(runs, tmp_path, capsys, monkeypatch):
     assert tpe.parse_params(["k=31"]).device == "cuda"
 
 
-UNPORTED = {
-    "K": dict(K=15), "np": dict(np_devices=2), "nh": dict(n_hosts=2),
-    "sealer": dict(sealer_ks=[25])}
+UNPORTED = {"np": dict(np_devices=2), "nh": dict(n_hosts=2)}
 
 
 @pytest.mark.parametrize("branch", list(UNPORTED))
@@ -287,6 +285,17 @@ def test_rescaffolding_matches_jax(runs, tmp_path, branch):
     assert got == want
     assert want[f"{NAME}-10.fa"].count(b">") > 0
     assert b"rescaffolds" in want[f"{NAME}-stats.tab"]
+
+
+def test_sealer_matches_jax(runs, tmp_path):
+    """sealer_ks after stage 8 (resumed from the JAX run's files, so only
+    stage_sealer and the stats run): name-8-sealed.fa and the stats
+    equal, and the scaffolds' N run is closed."""
+    want = resumed_after_8(jpe, runs, tmp_path / "jax", sealer_ks=[31, 25])
+    got = resumed_after_8(tpe, runs, tmp_path / "port", sealer_ks=[31, 25])
+    assert got == want
+    assert b"N" in want[f"{NAME}-8.fa"]
+    assert want[f"{NAME}-8-sealed.fa"] != want[f"{NAME}-8.fa"]
 
 
 def test_long_on_unpaired_reads_raises_as_jax(runs, tmp_path):
