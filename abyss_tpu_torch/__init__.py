@@ -4,15 +4,16 @@ The package mirrors `abyss_tpu`'s module layout so each port module
 sits at the same path as its JAX counterpart.  It imports torch and
 numpy only: never jax, and never a module of `abyss_tpu`.
 
-Ported so far: the `pe` pipeline (`pipeline/pe.py`: stages 1 to 8, 10
-and stats, with the bloom engine or the exact hash-DBG engine, colour
-space, lr= and long=), the `bloom-dbg` assembler with the sorted-table
-filter or the counting Bloom filter (`dbg/bloom_dbg.py`), the exact
-engine and its `assemble` tool (`dbg/hash_dbg.py`, `dbg/chain_ops.py`)
-and the `abyss-bloom` tool (`cli/bloom_tool.py`), with hand-written
-CUDA kernels: the canonical ntHash (`csrc/nthash.cu`), the counting
-filter's scatter-max (`csrc/scatter_max.cu`) and the unitig walks
-(`csrc/walk.cu`).
+Ported: the `pe` pipeline (`pipeline/pe.py`: stages 1 to 8, 10 and
+stats, with the bloom engine or the exact hash-DBG engine, colour space,
+lr=, long=, K= and sealer_ks=), and the whole tool suite of `python -m
+abyss_tpu_torch` (`__main__.py`: the 56 tools of `python -m abyss_tpu`,
+among them `bloom-dbg`, `assemble`, `paired-dbg`, `konnector`,
+`sealer`, `abyss-bloom`, `logcounter` with its PLC counters in
+`ops/plc.py`, and the FM-index tools over `align/fmindex.py`), with
+hand-written CUDA kernels: the canonical ntHash (`csrc/nthash.cu`), the
+scatter-max of the counting filter and the PLC array
+(`csrc/scatter_max.cu`) and the unitig walks (`csrc/walk.cu`).
 
 Hashes and keys are `torch.int64` tensors holding the bit pattern of
 the JAX package's `uint64` values; `u64.py` holds the unsigned helpers.

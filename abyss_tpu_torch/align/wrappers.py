@@ -80,9 +80,11 @@ def align_sam(name: str, target_fa: str, read_files, out,
             p.wait()
         return
     # native fallback (abyss-map / KAligner semantics)
+    from .. import resolve_device
     from ..io import fastx, read_batches
     from . import sam
     from .mapper import KmerAligner
+    resolve_device(device)
     contigs = [(r.id, r.seq) for r in fastx.read_fastx(target_fa)]
     out.write(sam.header({n: len(s) for n, s in contigs}))
     al = KmerAligner(contigs, k=seed_len, device=device)
@@ -97,17 +99,20 @@ def align_sam(name: str, target_fa: str, read_files, out,
 def wrapper_main(name: str, argv=None) -> int:
     """CLI for one wrapper: `<tool> target.fa reads... > out.sam`."""
     import argparse
-    ap = argparse.ArgumentParser(prog=f"abyss-tpu {name}")
+    ap = argparse.ArgumentParser(prog=f"abyss-tpu-torch {name}")
     ap.add_argument("target")
     ap.add_argument("reads", nargs="+")
     ap.add_argument("-l", "--seed-length", type=int, default=32)
     ap.add_argument("-j", "--threads", type=int, default=1)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="device of the native mapper [cuda]")
     args = ap.parse_args(argv)
     if not available(name):
         print(f"warning: external {name} not found; "
               "using the native mapper", file=sys.stderr)
     align_sam(name, args.target, args.reads, sys.stdout,
-              seed_len=args.seed_length, threads=args.threads)
+              seed_len=args.seed_length, threads=args.threads,
+              device=args.device)
     return 0
 
 

@@ -1,8 +1,9 @@
 """CLI entry points of the port (mirrors abyss_tpu/cli/tools.py).
 
-Ported so far: abyss-bloom-dbg, ABYSS (the exact hash-DBG assembler,
-`assemble`), konnector and abyss-sealer; abyss-bloom is
-cli/bloom_tool.py, abyss-paired-dbg cli/tools2.py.
+Reference binaries covered here: abyss-bloom-dbg, ABYSS (the exact
+hash-DBG assembler, `assemble`), AdjList, abyss-tofastq, abyss-todot,
+abyss-gc, konnector, abyss-sealer, abyss-db-txt and abyss-db-csv;
+abyss-bloom is cli/bloom_tool.py, the other tools cli/tools2.py.
 """
 
 from __future__ import annotations
@@ -156,6 +157,106 @@ def assemble_main(argv=None):
         db.add("contigs", len(contigs))
         db.add("kmers", n_total)
         db.add("kmers_assembled", n_assembled)
+
+
+def adjlist_main(argv=None):
+    """AdjList equivalent (AdjList/AdjList.cpp)."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch adjlist")
+    ap.add_argument("contigs")
+    ap.add_argument("-k", "--kmer", type=int, required=True)
+    ap.add_argument("-m", "--min-overlap", type=int, default=None,
+                    help="also find overlaps down to this length "
+                         "(< k-1; AdjList's suffix-array path)")
+    ap.add_argument("--adj", action="store_true", help="output .adj format")
+    ap.add_argument("--gfa2", action="store_true", help="output GFA2")
+    args = ap.parse_args(argv)
+
+    from ..graph import adjlist, graphio
+    from ..io import fastx
+    recs = list(fastx.read_fastx(args.contigs))
+    contigs = [(r.id, r.seq) for r in recs]
+    covs = []
+    for r in recs:
+        parts = r.comment.split()
+        covs.append(int(parts[1]) if len(parts) > 1 and
+                    parts[1].isdigit() else 0)
+    g = adjlist.build_overlap_graph(contigs, args.kmer, covs,
+                                    min_overlap=args.min_overlap)
+    if args.adj:
+        graphio.write_adj(g, sys.stdout)
+    elif args.gfa2:
+        graphio.write_gfa2(g, sys.stdout, k=args.kmer,
+                           seqs=dict(contigs))
+    else:
+        graphio.write_dot(g, sys.stdout, k=args.kmer)
+
+
+def tofastq_main(argv=None):
+    """abyss-tofastq equivalent (DataLayer/abyss-tofastq.cc)."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch tofastq")
+    ap.add_argument("files", nargs="*", default=["-"])
+    ap.add_argument("--fasta", action="store_true",
+                    help="convert to FASTA instead")
+    args = ap.parse_args(argv)
+    from ..io import fastx
+    for path in args.files or ["-"]:
+        for rec in fastx.read_fastx(path):
+            if args.fasta:
+                sys.stdout.write(f">{rec.id}\n{rec.seq}\n")
+            else:
+                q = rec.qual or ("I" * len(rec.seq))
+                sys.stdout.write(f"@{rec.id}\n{rec.seq}\n+\n{q}\n")
+
+
+def todot_main(argv=None):
+    """abyss-todot equivalent (Graph/todot.cc): graph format conversion."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch todot")
+    ap.add_argument("graphs", nargs="+")
+    ap.add_argument("-k", "--kmer", type=int, default=0)
+    ap.add_argument("--adj", action="store_true")
+    ap.add_argument("--gfa2", action="store_true")
+    args = ap.parse_args(argv)
+    from ..graph import graphio
+    g = None
+    k = args.kmer
+    for path in args.graphs:
+        g2, k2 = graphio.read_graph(path)
+        k = k or k2
+        if g is None:
+            g = g2
+        else:
+            # merge: union of vertices/edges
+            for cid in g2.contigs():
+                name = g2.names[cid]
+                if name not in g._index:
+                    g.add_contig(name, g2.lengths[cid], g2.coverages[cid])
+            for u in g2.vertices():
+                for v, prop in g2.out_edges(u):
+                    nu = graphio.parse_vertex_name(
+                        g2.name(u), g._index)
+                    nv = graphio.parse_vertex_name(
+                        g2.name(v), g._index)
+                    if not g.has_edge(nu, nv):
+                        g.add_edge(nu, nv, prop)
+    if args.adj:
+        graphio.write_adj(g, sys.stdout)
+    elif args.gfa2:
+        graphio.write_gfa2(g, sys.stdout, k=k)
+    else:
+        graphio.write_dot(g, sys.stdout, k=k)
+
+
+def gc_main(argv=None):
+    """abyss-gc equivalent (Graph/gc.cc): vertex/edge counts."""
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch gc")
+    ap.add_argument("graphs", nargs="+")
+    args = ap.parse_args(argv)
+    from ..graph import graphio
+    for path in args.graphs:
+        g, _ = graphio.read_graph(path)
+        v = sum(1 for _ in g.vertices())
+        e = g.num_edges()
+        sys.stdout.write(f"{path}: V={v} E={e}\n")
 
 
 def konnector_main(argv=None):
@@ -341,6 +442,21 @@ def sealer_main(argv=None):
         max_gap=args.max_gap, device=resolve_device(args.device))
     fastx.write_fasta(args.output_prefix + "_scaffold.fa", sealed)
     print(f"closed {stats.closed} of {stats.gaps} gaps", file=sys.stderr)
+
+
+def db_txt_main(argv=None):
+    ap = argparse.ArgumentParser(prog="abyss-tpu-torch db-txt")
+    ap.add_argument("db")
+    ap.add_argument("--csv", action="store_true")
+    args = ap.parse_args(argv)
+    from ..utils import db as dbmod
+    sys.stdout.write(dbmod.export_csv(args.db) if args.csv
+                     else dbmod.export_text(args.db))
+
+
+def db_csv_main(argv=None):
+    """abyss-db-csv equivalent (DataBase/db-csv.cc)."""
+    return db_txt_main((argv or []) + ["--csv"])
 
 
 def parse_size(s: str) -> int:

@@ -1,10 +1,9 @@
 """ntHash rolling DNA hash on torch int64 tensors.
 
-Port of abyss_tpu/ops/nthash.py (the functions stage 1 uses).  Each
-base maps to a fixed 64-bit seed, and the k-mer hash is the XOR of the
-seeds split-rotated by their distance from the k-mer end; `srol`
-rotates the low 33 and the high 31 bits independently, so it has
-period lcm(33, 31) = 1023.  Values are bit-identical to the JAX
+Port of abyss_tpu/ops/nthash.py.  Each base maps to a fixed 64-bit
+seed, and the k-mer hash is the XOR of the seeds split-rotated by their
+distance from the k-mer end; `srol` rotates the low 33 and the high 31
+bits independently, so it has period lcm(33, 31) = 1023.  Values are bit-identical to the JAX
 package's uint64 hashes, held in int64 (u64.py).
 
 Two implementations of the window hashes:
@@ -117,14 +116,22 @@ def _prefix_xor(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(a[..., :1]), a], dim=-1)
 
 
-def _window_hashes(codes: torch.Tensor, k: int, tables=("f", "r")):
+def _window_count(codes: torch.Tensor, k: int) -> int:
+    W = codes.shape[-1] - k + 1
+    if W <= 0:
+        raise ValueError(f"read length {codes.shape[-1]} < k={k}")
+    return W
+
+
+def _window_hashes(codes: torch.Tensor, k: int, tables=("f", "r"),
+                   masked=()):
     """(fwd, rev) of every k-window under the seed tables `tables`, by
     the closed form: per position pre-rotated seeds, a prefix XOR along
-    the read and one final rotation per window."""
+    the read and one final rotation per window.  `masked`: the [a, b)
+    runs of window positions whose seeds are XORed back out (a spaced
+    seed's zeros)."""
     L = codes.shape[-1]
-    W = L - k + 1
-    if W <= 0:
-        raise ValueError(f"read length {L} < k={k}")
+    W = _window_count(codes, k)
     dev = codes.device
     safe = codes.clamp(max=4).long()
     p = torch.arange(L, device=dev)
@@ -132,12 +139,24 @@ def _window_hashes(codes: torch.Tensor, k: int, tables=("f", "r")):
     z = srol(_table(tables[1], 0, str(dev))[safe], p % SROL_PERIOD)
     Py = _prefix_xor(y)
     Pz = _prefix_xor(z)
-    i = torch.arange(W, device=dev)
     wy = Py[..., k:] ^ Py[..., :W]  # XOR over window [i, i+k)
     wz = Pz[..., k:] ^ Pz[..., :W]
+    for a, b in masked:
+        wy = wy ^ (Py[..., b:b + W] ^ Py[..., a:a + W])
+        wz = wz ^ (Pz[..., b:b + W] ^ Pz[..., a:a + W])
+    i = torch.arange(W, device=dev)
     fwd = srol(wy, (k - 1 + i) % SROL_PERIOD)
     rev = srol(wz, (SROL_PERIOD - i % SROL_PERIOD) % SROL_PERIOD)
     return fwd, rev
+
+
+def valid_windows(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """bool [..., L-k+1]: window [i, i+k) holds only ACGT codes."""
+    W = _window_count(codes, k)
+    bad = (codes >= 4).to(torch.int32)
+    Pbad = torch.cat([torch.zeros_like(bad[..., :1]),
+                      torch.cumsum(bad, dim=-1, dtype=torch.int32)], dim=-1)
+    return (Pbad[..., k:] - Pbad[..., :W]) == 0
 
 
 def kmer_hashes_plain(codes: torch.Tensor, k: int):
@@ -153,13 +172,7 @@ def kmer_hashes_plain(codes: torch.Tensor, k: int):
       windows follow the same formula with N seeds of 0.
     """
     fwd, rev = _window_hashes(codes, k)
-    W = fwd.shape[-1]
-    canon = u64.umin(fwd, rev)
-    bad = (codes >= 4).to(torch.int32)
-    Pbad = torch.cat([torch.zeros_like(bad[..., :1]),
-                      torch.cumsum(bad, dim=-1, dtype=torch.int32)], dim=-1)
-    valid = (Pbad[..., k:] - Pbad[..., :W]) == 0
-    return fwd, rev, canon, valid
+    return fwd, rev, u64.umin(fwd, rev), valid_windows(codes, k)
 
 
 def kmer_hashes_alt(codes: torch.Tensor, k: int):
@@ -202,6 +215,60 @@ def canonical_hashes(codes: torch.Tensor, k: int):
         return canon, valid
     _, _, canon, valid = kmer_hashes_plain(codes, k)
     return canon, valid
+
+
+def mask_runs(mask: str) -> tuple[tuple[int, int], ...]:
+    """[start, end) runs of masked ('0') positions of a spaced seed."""
+    runs = []
+    i = 0
+    while i < len(mask):
+        if mask[i] == "0":
+            j = i
+            while j < len(mask) and mask[j] == "0":
+                j += 1
+            runs.append((i, j))
+            i = j
+        else:
+            i += 1
+    return tuple(runs)
+
+
+def kmer_pair_mask(k: int, K: int) -> str:
+    """SpacedSeed::kmerPair (BloomDBG/SpacedSeed.h:18-26): K ones, a
+    k-2K gap of zeros, K ones -- the K-mode (paired DBG style) seed."""
+    assert K <= k // 2
+    return "1" * K + "0" * (k - 2 * K) + "1" * K
+
+
+def qr_seed(length: int) -> str:
+    """SpacedSeed::qrSeed (SpacedSeed.h:40-53): quadratic-residue seed."""
+    assert length >= 11
+    seed = ["1"] * length
+    for i in range(length):
+        for j in range(1, length):
+            if j * j % length == i:
+                seed[i] = "0"
+                break
+    return "".join(seed)
+
+
+def qr_seed_pair(k: int, K: int) -> str:
+    """SpacedSeed::qrSeedPair: QR seed + gap + reversed QR seed, so the
+    overall pattern is symmetric (SpacedSeed.h:55-75)."""
+    qr = qr_seed(K)
+    return (qr + "0" * (k - 2 * K) + qr[::-1])[:k]
+
+
+def masked_kmer_hashes(codes: torch.Tensor, mask: str):
+    """Spaced-seed window hashes (maskHash, nthash.hpp:537-547): the
+    full-k-mer fwd/rc hashes with the masked positions' seed
+    contributions XORed back out, on the codes' device.
+
+    mask: '1'/'0' string of length k.  Each masked run is corrected with
+    prefix-XOR windows, so the cost is O(#runs).  Returns (fwd, rev,
+    canon, valid) as kmer_hashes."""
+    fwd, rev = _window_hashes(codes, len(mask), masked=mask_runs(mask))
+    return fwd, rev, u64.umin(fwd, rev), valid_windows(codes, len(mask))
 
 
 def nte64(h: torch.Tensor, k: int, i: int) -> torch.Tensor:

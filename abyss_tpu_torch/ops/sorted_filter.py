@@ -268,3 +268,18 @@ class SortedKmerCounter:
             kmers=kmers, counts=counts, packed=pack_table(kmers, counts),
             k=self.k, threshold=self.threshold)
 
+
+
+def build_sorted_filter(batches, k: int, threshold: int = 2,
+                        device="cuda") -> SortedKmerFilter:
+    """Count all k-mers of [B, L] code batches (numpy or tensors) into a
+    SortedKmerFilter on `device`."""
+    from .. import resolve_device
+    from . import nthash
+    dev = resolve_device(device)
+    counter = SortedKmerCounter(k, threshold)
+    for codes in batches:
+        canon, valid = nthash.canonical_hashes(
+            torch.as_tensor(codes, dtype=torch.uint8).to(dev), k)
+        counter.add(canon, valid)
+    return counter.finalize(device=dev)

@@ -86,3 +86,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 tensor -> numpy uint64 array with the same bits."""
     return t.detach().cpu().numpy().astype(np.int64, copy=False).view(
         np.uint64)
+
+
+def umod(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x mod m of the uint64 words x, for 0 < m <= 2^62 (numpy's uint64
+    `%`); int64 `%` on the raw word would read the top bit as a sign."""
+    # x = 2 * (x >> 1) + (x & 1), and x >> 1 is below 2^63
+    return ((srl(x, 1) % m) * 2 + (x & 1)) % m

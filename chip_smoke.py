@@ -122,6 +122,29 @@ Phases, each printing one JSON line:
           engine, with the host engine and with --cascade 2 --extend,
           and `pe sealer_ks` resumed from pe_parity's stage 8: every
           output byte-identical.
+  tools_parity  every tool that takes --device (map, index, count,
+          distanceest, pathconsensus with a 7-branch bubble, rresolver,
+          consensus, gapfill, kmerprint, logcounter, samtobreak, tigmint,
+          arcs and the five aligner wrappers) on the parity phase's reads
+          and genome, with --device cuda and with --device cpu: the same
+          return value (index raises abyss_tpu's AttributeError on both),
+          stdout, stderr and files, byte for byte, and each tool's kernel
+          launches on the card.
+  tools   `logcounter -k 31 -b 1073741824` (2^30 one-byte PLC cells)
+          through its entry point on the fixture's reads, launch counts
+          reset just before and read just after: wall time, one ntHash and
+          one scatter-max launch per batch, k-mers inserted (equal to the
+          windows the CPU port marks valid), the counters' sha256 and
+          nonzero cells; the first 4 batches again on the card and on the
+          CPU (counters equal); the decoded counts of 1,000 genome k-mers
+          against their exact counts in the reads (median ratio in
+          0.5-2); the scatter-max kernel against its plain version on one
+          logcounter batch (the `scatter_max_plc` row).  Then
+          FMIndex.build of the 4.6 Mbp genome (the device suffix array:
+          rounds, wall time, a permutation, in suffix order at 2,000
+          sampled places), count and locate of 1,000 40-mers against a
+          host search, and the suffix array of the first 2^21 bases on
+          the card and on the CPU (equal).
 
 Then one `kernels` JSON line (each kernel's launches on the path that
 runs it, and on the pe path for the kernels pe runs, error against its
@@ -129,7 +152,8 @@ plain version, times and bound; for ntHash also its launches on the
 exact_pe, wide, paired and konnector paths, its times at three shapes
 and launches x (ms - bound_ms) summed over every shape of the main,
 pe, wide and paired runs; for scatter-max also its launches on the
-konnector cascade path),
+konnector cascade path and its PLC shape; for both, their launches on
+the logcounter path),
 and as the last line
 {"ok": true, "device": {...}} (a run of named phases prints no
 `kernels` line).  Any failed check exits non-zero before the last
@@ -919,12 +943,18 @@ def _assemble(paths, params, device, timings=None) -> str:
     return out.getvalue()
 
 
+def _parity_genome() -> str:
+    """The parity phase's 20 kbp genome with 4 repeats of 500 bp."""
+    from abyss_tpu_torch import sim
+    return sim.genome_with_repeats(20000, seed=5, n_repeats=4,
+                                   repeat_len=500)
+
+
 def phase_parity(tmp: str) -> dict:
     """GPU and CPU runs of the port write the same FASTA bytes."""
     from abyss_tpu_torch import sim
     from abyss_tpu_torch.dbg.params import AssemblyParams
-    genome = sim.genome_with_repeats(20000, seed=5, n_repeats=4,
-                                     repeat_len=500)
+    genome = _parity_genome()
     reads = sim.simulate_paired_reads(genome, coverage=30, read_len=100,
                                       error_rate=0.01, seed=6)
     paths = [os.path.join(tmp, "p1.fq"), os.path.join(tmp, "p2.fq")]
@@ -1153,6 +1183,15 @@ def phase_scatter(capture: dict) -> dict:
     bit for bit, on one real pass-1 batch of the Bloom path: its update
     stream replayed on the counters as they stood before it (the result
     must also be the counters the run left after it)."""
+    return dict(phase="kernel", kernel="scatter_max",
+                **scatter_replay(capture), batch=CAPTURE_BATCH)
+
+
+def scatter_replay(capture: dict) -> dict:
+    """One captured scatter-max call (`before` counters, `idx`, `val`,
+    and the `after` counters the run left) replayed through the kernel
+    and through scatter_max_u8_plain, bit for bit, with timings and the
+    byte bound."""
     import torch
     from abyss_tpu_torch.ops import kernels
     from abyss_tpu_torch.ops import scatter_max as sm
@@ -1187,13 +1226,13 @@ def phase_scatter(capture: dict) -> dict:
     plain_ms = median_ms(lambda: sm.scatter_max_u8_plain(work, idx, val), 5,
                          flush=reset)
     # one PyTorch call on the same inputs: the dropped updates all hit the
-    # sink slot, which the counting filter clears after each insert
+    # sink slot, which the counting filter clears after each insert (a
+    # PLC array drops none)
     library_ms = median_ms(
         lambda: work.scatter_reduce_(0, idx, val, "amax"), 5, flush=reset)
     del work
-    return dict(phase="kernel", kernel="scatter_max", counters=S,
-                updates=Q, real_updates=real, counters_raised=written,
-                batch=CAPTURE_BATCH, max_abs_err=err, ms=ms,
+    return dict(counters=S, updates=Q, real_updates=real,
+                counters_raised=written, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
@@ -2385,6 +2424,429 @@ def phase_paired_parity(tmp: str) -> dict:
     return row
 
 
+# the tool suite: the tools_parity and tools phases
+TOOLS_K = 25                     # k of the tools_parity inputs
+LOGCOUNTER_K = 31
+LOGCOUNTER_CELLS = 1 << 30       # logcounter -b: 2^30 one-byte cells, 1 GiB
+LOGCOUNTER_HELD_BATCHES = 4      # card == CPU counters on the first batches
+PLC_SAMPLE_KMERS = 1000          # genome k-mers whose PLC counts are read
+PLC_MEDIAN_RATIO = (0.5, 2.0)    # decoded / exact count, median
+FM_PATTERNS = 1000               # count/locate queries of the 4.6 Mbp index
+FM_PATTERN_LEN = 40
+FM_ORDER_PAIRS = 2000            # adjacent suffix pairs checked in order
+FM_SA_HELD = 1 << 21             # card == CPU suffix array on these bases
+PARITY_TOOL_VARIANTS = 6         # low-coverage copies of the bubble contig
+
+
+def _run_tool(main, argv, workdir: str) -> tuple:
+    """main(argv) with workdir as the working directory and stdout and
+    stderr captured: (its return value, or the type and text of the
+    exception it raised; stdout; stderr)."""
+    import contextlib
+    out, err = io.StringIO(), io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                result = main(argv)
+            except Exception as e:     # compared between the devices
+                result = f"{type(e).__name__}: {e}"
+    finally:
+        os.chdir(cwd)
+    return result, out.getvalue(), err.getvalue()
+
+
+def _write_fasta(path: str, recs) -> None:
+    with open(path, "w") as f:
+        for name, seq in recs:
+            f.write(f">{name}\n{seq}\n")
+
+
+def _tools_inputs(d: str, reads) -> dict:
+    """The inputs of tools_parity, from the parity genome and its reads:
+    the genome, four overlapping contigs, a contig chain with k-1
+    overlaps whose second contig has PARITY_TOOL_VARIANTS one-base
+    variants (a bubble of 7 branches, so PathConsensus aligns them on
+    the device) with its graph and an ambiguous path across it, a
+    scaffold with a 30 bp gap, linked reads and the first 1,000 pairs.
+    Returns {name: absolute path}."""
+    import numpy as np
+    from abyss_tpu_torch.graph import adjlist, graphio
+    g = _parity_genome()
+    p = {n: os.path.join(d, n) for n in (
+        "genome.fa", "contigs.fa", "bub.fa", "bub.dot", "amb.path",
+        "scaf.fa", "lr.fq", "h1.fq")}
+    p["r1"], p["r2"] = reads
+    _write_fasta(p["genome.fa"], [("ref", g)])
+    with open(p["contigs.fa"], "w") as f:
+        for i, (a, b) in enumerate(((0, 5100), (5000, 10100),
+                                    (10000, 15100), (15000, 20000))):
+            f.write(f">{i} {b - a} 99\n{g[a:b]}\n")
+    k1 = TOOLS_K - 1
+    chain = [g[a:b] for a, b in ((0, 3000), (3000 - k1, 6000),
+                                 (6000 - k1, 9000), (9000 - k1, 12000))]
+    mid = chain[1]
+    seqs, covs = list(chain), [500, 400, 450, 520]
+    for v in range(PARITY_TOOL_VARIANTS):
+        at = 200 + 400 * v
+        seqs.append(mid[:at] + "ACGT"[("ACGT".index(mid[at]) + 1) % 4]
+                    + mid[at + 1:])
+        covs.append(10 + v)
+    with open(p["bub.fa"], "w") as f:
+        for i, (s, c) in enumerate(zip(seqs, covs)):
+            f.write(f">{i} {len(s)} {c}\n{s}\n")
+    graph = adjlist.build_overlap_graph(
+        [(str(i), s) for i, s in enumerate(seqs)], TOOLS_K, covs)
+    graphio.write_dot(graph, p["bub.dot"], k=TOOLS_K)
+    with open(p["amb.path"], "w") as f:    # the gap spans contig 1
+        f.write(f"20\t0+ {len(mid) - k1}N 2+ 3+\n")
+    _write_fasta(p["scaf.fa"], [("s0", g[:8000] + "N" * 30 + g[8030:16000])])
+    rng = np.random.default_rng(12)
+    with open(p["lr.fq"], "w") as f:
+        for mol in range(150):
+            start = int(rng.integers(0, len(g) - 2000))
+            for r in range(12):
+                at = start + int(rng.integers(0, 2000 - 60))
+                f.write(f"@m{mol}r{r} BX:Z:BC{mol:04d}\n{g[at:at + 60]}\n"
+                        f"+\n{'I' * 60}\n")
+    _head_fastq(reads[0], p["h1.fq"], 1000)
+    return p
+
+
+def _parity_tool_runs(p: dict) -> dict:
+    """{tool: (entry point, arguments)} for every tool that takes
+    --device, except paired-dbg (the paired_parity phase's)."""
+    from abyss_tpu_torch.align import wrappers
+    from abyss_tpu_torch.cli import tools2
+    reads = [p["r1"], p["r2"]]
+    runs = {
+        "map": (tools2.map_main, [*reads, p["contigs.fa"], "-l", "32"]),
+        "index": (tools2.index_main, [p["contigs.fa"]]),
+        "count": (tools2.count_main, ["-k", "40", p["contigs.fa"]]),
+        "distanceest": (tools2.distanceest_main, [
+            *reads, "--target", p["contigs.fa"], "--dot", "-n", "1", "-o",
+            "out.dist.dot", "--hist", "h.hist", "-k", str(TOOLS_K)]),
+        "pathconsensus": (tools2.pathconsensus_main, [
+            p["bub.fa"], p["bub.dot"], p["amb.path"], "-k", str(TOOLS_K),
+            "-a", "8", "-o", "out.path", "-s", "cons.fa", "-g", "pc.dot"]),
+        "rresolver": (tools2.rresolver_main, [
+            p["bub.fa"], p["bub.dot"], *reads, "-k", str(TOOLS_K), "-o",
+            "rr.dot"]),
+        "consensus": (tools2.consensus_main, [p["contigs.fa"], *reads, "-o",
+                                              "cons.fa"]),
+        "gapfill": (tools2.gapfill_main, [p["scaf.fa"], *reads, "-k",
+                                          str(TOOLS_K), "-b", "4M", "-o",
+                                          "sealed.fa"]),
+        # k > 32: the wide table, which hashes with the ntHash kernel
+        "kmerprint": (tools2.kmerprint_main, [p["h1.fq"], "-k", "40"]),
+        "logcounter": (tools2.logcounter_main, [*reads, "-k", str(TOOLS_K),
+                                                "-b", "1000003"]),
+        "samtobreak": (tools2.samtobreak_main, [p["genome.fa"],
+                                                p["contigs.fa"]]),
+        "tigmint": (tools2.tigmint_main, [p["contigs.fa"], p["lr.fq"], "-o",
+                                          "cut.fa", "--bed", "mol.bed", "-d",
+                                          "2000"]),
+        "arcs": (tools2.arcs_main, [p["contigs.fa"], p["lr.fq"], "-e", "2000",
+                                    "-n", "2", "-s", "400", "-o",
+                                    "links.dot"])}
+    for name in ("bwa", "bwamem", "bowtie2", "kaligner", "dida"):
+        runs[name] = (getattr(wrappers, name + "_main"),
+                      [p["contigs.fa"], p["r1"]])
+    return runs
+
+
+def phase_tools_parity(tmp: str) -> dict:
+    """Every tool that takes --device, on the parity phase's reads, with
+    --device cuda and with --device cpu: the same return value (`index`
+    raises abyss_tpu's AttributeError on both), stdout, stderr and
+    files, byte for byte.  Each tool's kernel launches on the card are
+    recorded."""
+    from abyss_tpu_torch.ops import kernels
+    inp = os.path.join(tmp, "tools_inputs")
+    os.makedirs(inp)
+    p = _tools_inputs(inp, [os.path.join(tmp, "p1.fq"),
+                            os.path.join(tmp, "p2.fq")])
+    row = dict(phase="tools_parity", identical=True, runs={})
+    for name, (main, argv) in _parity_tool_runs(p).items():
+        res, times = {}, {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"tools_parity_{name}_{device}")
+            os.makedirs(out)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result, stdout, stderr = _run_tool(main, argv + ["--device",
+                                                             device], out)
+            times[device] = time.perf_counter() - t0
+            if device == "cuda":
+                launched = {k: v for k, v in kernels.launches.items() if v}
+            res[device] = (result, stdout, stderr, _tree_bytes(out))
+        gpu, cpu = res["cuda"], res["cpu"]
+        for i, what in enumerate(("return value", "stdout", "stderr")):
+            check(gpu[i] == cpu[i], f"tools parity {name}: the {what} "
+                                    f"differs between GPU and CPU")
+        differ = sorted(n for n in set(gpu[3]) | set(cpu[3])
+                        if gpu[3].get(n) != cpu[3].get(n))
+        check(not differ, f"tools parity {name}: files differ: {differ}")
+        if name == "pathconsensus":
+            check(gpu[3].get("cons.fa", b"").count(b">") == 1,
+                  "tools parity pathconsensus: the bubble was not merged")
+        if name == "index":
+            check(str(gpu[0]).startswith("AttributeError") and not gpu[3],
+                  f"tools parity index: expected abyss_tpu's AttributeError "
+                  f"and no file, got {gpu[0]!r}")
+        else:
+            check(gpu[0] in (0, None) and (gpu[1] or gpu[2] or gpu[3]),
+                  f"tools parity {name}: returned {gpu[0]!r} with no output")
+        row["runs"][name] = dict(gpu_s=times["cuda"], cpu_s=times["cpu"],
+                                 stdout_bytes=len(gpu[1]),
+                                 files=sorted(gpu[3]), launches=launched,
+                                 stderr=gpu[2].strip().splitlines()[-6:])
+    for name in ("map", "count", "kmerprint", "logcounter"):
+        check(row["runs"][name]["launches"].get("nthash", 0) > 0,
+              f"tools parity {name}: the ntHash kernel was not launched")
+    check(row["runs"]["logcounter"]["launches"].get("scatter_max", 0) > 0,
+          "tools parity logcounter: the scatter-max kernel was not launched")
+    return row
+
+
+def _kmer_counts(paths, k: int, targets) -> tuple:
+    """One pass over the reads: the windows the CPU port marks valid
+    (nthash.valid_windows on the host), and the exact count of each of
+    the sorted unique canonical hashes `targets` (on the card)."""
+    import torch
+    from abyss_tpu_torch import u64
+    from abyss_tpu_torch.io import read_batches
+    from abyss_tpu_torch.ops import nthash
+    exact = torch.zeros(len(targets), dtype=torch.int64,
+                        device=targets.device)
+    n_cpu = 0
+    for batch in read_batches(paths, 4096, 512):
+        codes = torch.from_numpy(batch.codes)
+        n_cpu += int(nthash.valid_windows(codes, k).sum())
+        canon, valid = nthash.canonical_hashes(codes.to(targets.device), k)
+        c = canon[valid]
+        at = u64.usearchsorted(targets, c).clamp(max=len(targets) - 1)
+        hit = targets[at] == c
+        exact += torch.bincount(at[hit], minlength=len(targets))
+    return n_cpu, exact
+
+
+def _host_find_all(text: str, pat: str) -> list:
+    out, at = [], text.find(pat)
+    while at >= 0:
+        out.append(at)
+        at = text.find(pat, at + 1)
+    return out
+
+
+def _suffix_order_ok(tb: bytes, sa, pairs) -> bool:
+    """sa[i] sorts before sa[i + 1] for each i of pairs (suffixes compared
+    on their first 4 kbp, in full where those agree)."""
+    for i in pairs:
+        a, b = int(sa[i]), int(sa[i + 1])
+        x, y = tb[a:a + 4096], tb[b:b + 4096]
+        if x == y:
+            x, y = tb[a:], tb[b:]
+        if not x < y:
+            return False
+    return True
+
+
+def phase_tools(tmp: str, paths, genome: str) -> tuple:
+    """The tool suite at full size on the card.  `logcounter -k 31 -b
+    2^30` through its entry point on the fixture's reads, launch counts
+    reset just before and read just after: wall time, k-mers inserted
+    (equal to the windows the CPU port marks valid), the counters'
+    sha256 and nonzero cells, one scatter-max batch kept for the replay;
+    the first LOGCOUNTER_HELD_BATCHES batches on the card and on the CPU
+    (counters equal); the decoded counts of PLC_SAMPLE_KMERS genome
+    k-mers against their exact counts in the reads.  Then FMIndex.build
+    of the genome (the device suffix array: rounds, wall time, a
+    permutation in suffix order at FM_ORDER_PAIRS sampled places),
+    count and locate of FM_PATTERNS 40-mers against a host search of
+    the genome, and the suffix array of the genome's first FM_SA_HELD
+    bases on the card and on the CPU.  Returns the row and the replay's
+    scatter-max row."""
+    import numpy as np
+    import torch
+    from abyss_tpu_torch import u64
+    from abyss_tpu_torch.align import fmindex
+    from abyss_tpu_torch.cli import tools2
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.ops import kernels, nthash
+    from abyss_tpu_torch.ops import plc as plc_mod
+    k, size = LOGCOUNTER_K, LOGCOUNTER_CELLS
+    row = dict(phase="tools")
+    runs, capture = [], {}
+    logcounter, scatter = tools2.logcounter, plc_mod.scatter_max_u8
+
+    def keep(*a, **kw):
+        runs.append(logcounter(*a, **kw))
+        return runs[-1]
+
+    def recording(counters, idx, val):
+        n = capture.setdefault("calls", 0)
+        if n == CAPTURE_BATCH:
+            capture.update(before=counters.clone(), idx=idx.clone(),
+                           val=val.clone())
+        out = scatter(counters, idx, val)
+        if n == CAPTURE_BATCH:
+            capture["after"] = counters.clone()
+        capture["calls"] = n + 1
+        return out
+
+    argv = ["-k", str(k), "-b", str(size), *paths]
+    with Patches() as patches:
+        patches.patch(tools2, "logcounter", keep)
+        patches.patch(plc_mod, "scatter_max_u8", recording)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result, _, err = _run_tool(tools2.logcounter_main, argv, tmp)
+            torch.cuda.synchronize()
+        finally:
+            launches = dict(kernels.launches)
+        wall = time.perf_counter() - t0
+    check(result == 0 and len(runs) == 1, f"logcounter failed: {result!r}")
+    plc, n = runs[0]
+    batches = capture["calls"]
+    check(err == f"inserted {n} k-mers into a {size}-cell PLC array\n",
+          f"logcounter printed {err!r}")
+    for name in ("nthash", "scatter_max"):
+        check(launches[name] == batches, f"logcounter launched {name} "
+              f"{launches[name]} times over {batches} batches")
+    check("after" in capture, f"logcounter ran fewer than "
+                              f"{CAPTURE_BATCH + 1} batches")
+    counters = plc.counters
+    host = counters.cpu().numpy()
+    lc = dict(command="logcounter " + " ".join(argv[:4]), wall_s=wall,
+              batches=batches, kmers_inserted=n, launches=launches,
+              counters_sha256=hashlib.sha256(host.tobytes()).hexdigest(),
+              nonzero_cells=int(np.count_nonzero(host)),
+              max_code=int(host.max()))
+    del host
+    # the decoded counts of genome k-mers against their exact counts
+    rng = np.random.default_rng(2026)
+    codes = alphabet.encode(genome)
+    at = rng.integers(0, len(codes) - k + 1, PLC_SAMPLE_KMERS)
+    sample = torch.from_numpy(codes[at[:, None] + np.arange(k)])
+    canon = nthash.kmer_hashes_plain(sample, k)[2][:, 0].cuda()
+    targets, inverse = torch.unique(canon, return_inverse=True)
+    targets, order = u64.usort(targets)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(order), device=order.device)
+    t1 = time.perf_counter()
+    n_cpu, exact = _kmer_counts(paths, k, targets)
+    lc["second_pass_s"] = time.perf_counter() - t1
+    check(n_cpu == n, f"logcounter inserted {n} k-mers, the CPU port's "
+                      f"valid windows are {n_cpu}")
+    lc["kmers_cpu"] = n_cpu
+    exact = exact[rank[inverse]].double()
+    decoded = plc.count(u64.umod(canon, size)).double()
+    seen = exact > 0
+    ratio = (decoded[seen] / exact[seen]).cpu().numpy()
+    q10, med, q90 = (float(x) for x in np.quantile(ratio, [0.1, 0.5, 0.9]))
+    lc.update(sampled_kmers=PLC_SAMPLE_KMERS, sampled_seen=int(seen.sum()),
+              exact_count_median=float(exact.median()),
+              ratio_median=med, ratio_p10=q10, ratio_p90=q90)
+    check(PLC_MEDIAN_RATIO[0] <= med <= PLC_MEDIAN_RATIO[1],
+          f"logcounter: median decoded / exact count {med:.3f} outside "
+          f"{PLC_MEDIAN_RATIO}")
+    del plc, runs, counters
+    torch.cuda.empty_cache()
+    # the first batches on the card and on the CPU
+    held = {}
+    for device in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        arr, m = tools2.logcounter(paths, k, size, device,
+                                   max_batches=LOGCOUNTER_HELD_BATCHES)
+        held[device] = (arr.counters.cpu(), m, time.perf_counter() - t1)
+        del arr
+    check(held["cuda"][1] == held["cpu"][1] and
+          torch.equal(held["cuda"][0], held["cpu"][0]),
+          f"logcounter's first {LOGCOUNTER_HELD_BATCHES} batches: card and "
+          "CPU counters differ")
+    lc.update(held_batches=LOGCOUNTER_HELD_BATCHES, held_equal=True,
+              held_kmers=held["cpu"][1], held_gpu_s=held["cuda"][2],
+              held_cpu_s=held["cpu"][2])
+    del held
+    row["logcounter"] = lc
+    replay = dict(phase="kernel", kernel="scatter_max_plc",
+                  **scatter_replay(capture), batch=CAPTURE_BATCH)
+    del capture
+    torch.cuda.empty_cache()
+
+    # the FM-index of the genome: its suffix array on the card
+    sas, rounds = [], [0]
+    suffix_array, doubling = fmindex.suffix_array, fmindex._doubling_round
+
+    def keep_sa(*a, **kw):
+        sas.append(suffix_array(*a, **kw))
+        return sas[-1]
+
+    def count_round(*a, **kw):
+        rounds[0] += 1
+        return doubling(*a, **kw)
+
+    with Patches() as patches:
+        patches.patch(fmindex, "suffix_array", keep_sa)
+        patches.patch(fmindex, "_doubling_round", count_round)
+        t1 = time.perf_counter()
+        fm = fmindex.FMIndex.build(codes, device="cuda")
+        build_s = time.perf_counter() - t1
+    sa = sas[0]
+    n_text = len(codes) + 1
+    check(rounds[0] > 0 and n_text >= fmindex._DEVICE_MIN,
+          "FMIndex.build did not take the device branch")
+    perm = bool(np.array_equal(np.bincount(sa, minlength=n_text),
+                               np.ones(n_text, np.int64)))
+    check(perm, "the genome's suffix array is not a permutation")
+    tb = (np.concatenate([codes.astype(np.int64) + 1, [0]])
+          .astype(np.uint8).tobytes())
+    pairs = rng.integers(0, n_text - 1, FM_ORDER_PAIRS)
+    check(_suffix_order_ok(tb, sa, pairs),
+          "the genome's suffix array is out of order")
+    t1 = time.perf_counter()
+    counted = located = 0
+    for i in range(FM_PATTERNS):
+        if i % 10 == 9:     # one in ten: random bases, mostly absent
+            pat = "".join("ACGT"[c] for c in rng.integers(0, 4,
+                                                          FM_PATTERN_LEN))
+        else:
+            s = int(rng.integers(0, len(genome) - FM_PATTERN_LEN))
+            pat = genome[s:s + FM_PATTERN_LEN]
+        want = _host_find_all(genome, pat)
+        pc = alphabet.encode(pat)
+        check(fm.count(pc) == len(want), f"FM count of {pat} is "
+              f"{fm.count(pc)}, the host search finds {len(want)}")
+        check(fm.locate(pc) == want, f"FM locate of {pat} differs from the "
+                                     "host search")
+        counted += 1
+        located += len(want)
+    query_s = time.perf_counter() - t1
+    head = np.concatenate([codes[:FM_SA_HELD].astype(np.int64) + 1, [0]])
+    t1 = time.perf_counter()
+    sa_gpu = fmindex._suffix_array_device(head, "cuda")
+    t2 = time.perf_counter()
+    sa_cpu = fmindex._suffix_array_device(head, "cpu")
+    t3 = time.perf_counter()
+    check(np.array_equal(sa_gpu, sa_cpu), f"the suffix array of the first "
+          f"{FM_SA_HELD} bases differs between the card and the CPU")
+    row["fmindex"] = dict(
+        bases=len(codes), device_branch=True, rounds=rounds[0],
+        build_s=build_s, bytes_per_base=(
+            fm.bwt.nbytes + fm.occ_ck.nbytes + fm.sa_vals.nbytes
+            + fm.sa_mask.nbytes + fm.sa_rank.nbytes) / fm.n,
+        permutation=perm, order_pairs=FM_ORDER_PAIRS,
+        patterns=counted, occurrences=located, query_s=query_s,
+        held_bases=FM_SA_HELD, held_equal=True, held_gpu_s=t2 - t1,
+        held_cpu_s=t3 - t2)
+    emit(row)
+    return row, replay
+
+
 # the phases `python3 chip_smoke.py NAME ...` runs alone, each with the
 # phases it needs run first ("main" includes the ntHash shape timings;
 # "walk" the walk and look-ahead rows of the main path; "bloom" the
@@ -2394,10 +2856,11 @@ PHASES = {"kernel": (), "parity": (), "main": ("kernel",),
           "walk": ("main",), "bloom": ("main",), "pe_parity": ("parity",),
           "pe": (), "exact_parity": ("parity",), "exact_pe": (), "wide": (),
           "paired": (), "konnector": (), "konnector_cascade": (),
-          "sealer": ("pe",), "paired_parity": ("pe_parity",)}
+          "sealer": ("pe",), "paired_parity": ("pe_parity",),
+          "tools_parity": ("parity",), "tools": ()}
 # the phases that read the 4.6 Mbp fixture (make_fixture)
 FIXTURE_PHASES = {"main", "bloom", "pe", "exact_pe", "wide", "paired",
-                  "konnector", "konnector_cascade", "sealer"}
+                  "konnector", "konnector_cascade", "sealer", "tools"}
 
 
 def phases_to_run(names) -> list:
@@ -2520,6 +2983,12 @@ def main(argv=None) -> int:
             phase_sealer(tmp, paths, gidx)
         if "paired_parity" in run:
             emit(phase_paired_parity(tmp))
+        if "tools_parity" in run:
+            emit(phase_tools_parity(tmp))
+        if "tools" in run:
+            tools_row, plc_replay = phase_tools(tmp, paths, genome)
+            emit(plc_replay)
+            torch.cuda.empty_cache()
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
@@ -2552,6 +3021,14 @@ def main(argv=None) -> int:
                 launches_paired=paired_row["launches"]["nthash"],
                 launches_konnector=konn_row["launches"]["nthash"])
     scatter.update(launches_konnector=casc_row["launches"]["scatter_max"])
+    # both kernels on the logcounter path; the scatter-max also at its PLC
+    # shape (one logcounter batch replayed)
+    logcounter_launches = tools_row["logcounter"]["launches"]
+    kern.update(launches_logcounter=logcounter_launches["nthash"])
+    scatter.update(launches_logcounter=logcounter_launches["scatter_max"],
+                   plc={n: plc_replay[n] for n in (
+                       "updates", "max_abs_err", "ms", "plain_ms",
+                       "library_ms", "bytes", "bound_ms", "bound_by")})
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=path["launches"][name],
@@ -2562,7 +3039,8 @@ def main(argv=None) -> int:
                                "gap_ms_pe_run", "gap_ms_wide_run",
                                "gap_ms_paired_run", "launches_exact_pe",
                                "launches_wide", "launches_paired",
-                               "launches_konnector")
+                               "launches_konnector", "launches_logcounter",
+                               "plc")
            if n in rec},
         **({"launches_pe": pe_row["launches"][name]}
            if name in ("nthash", "walk", "branch") else {}))

@@ -609,3 +609,32 @@ def test_konnector_on_card_matches_cpu(cuda, engine, monkeypatch):
                     for f in (ctr.finalize(dev), casc)]
     assert out["cuda"] == out["cpu"]
     assert any(r[2] == "FOUND_PATH" for r in out["cpu"][0])
+
+
+@pytest.mark.parametrize("size", [1000, 1 << 20])
+def test_plc_insert_on_card_matches_cpu(cuda, size):
+    """PLCArray.insert on the card (threefry on the device, the write by
+    the scatter-max kernel) gives the CPU's counters byte for byte."""
+    from abyss_tpu_torch.ops import plc
+    rng = np.random.default_rng(size)
+    arrays = [plc.PLCArray(size, seed=4, device=d) for d in ("cpu", cuda)]
+    launched = kernels.launches["scatter_max"]
+    for _ in range(40):
+        idx = rng.integers(0, size, size=5000)
+        idx[:500] = 7                   # one cell, 40 increments
+        for a in arrays:
+            a.insert(idx)
+    assert kernels.launches["scatter_max"] == launched + 40
+    assert torch.equal(arrays[1].counters.cpu(), arrays[0].counters)
+    assert int(arrays[0].counters.max()) > 32
+
+
+def test_device_suffix_array_on_card_matches_cpu(cuda):
+    from abyss_tpu_torch.align import fmindex
+    g = sim.genome_with_repeats(200_000, seed=3, n_repeats=4,
+                                repeat_len=700)
+    text = np.concatenate([alphabet.encode(g).astype(np.int64) + 1, [0]])
+    sa = fmindex._suffix_array_device(text, cuda)
+    np.testing.assert_array_equal(sa, fmindex._suffix_array_device(text,
+                                                                   "cpu"))
+    assert np.array_equal(np.sort(sa), np.arange(len(text)))

@@ -4,6 +4,7 @@ to the CPU, and chip_smoke.py refuses to run without a card or outside
 a checkout of the repository."""
 
 import ast
+import contextlib
 import io
 import os
 import shutil
@@ -107,3 +108,68 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     proc = run_smoke(str(tmp_path), str(tmp_path / "chip_smoke.py"))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# every tool of `python -m abyss_tpu_torch` that takes --device, with
+# arguments that reach the device (file names that need not exist where
+# the device is resolved before any input is read)
+DEVICE_TOOL_ARGS = {
+    "map": ["r.fq", "c.fa"], "index": ["c.fa"],
+    "count": ["-k", "5", "c.fa"],
+    "distanceest": ["r.fq", "--target", "c.fa"],
+    "pathconsensus": ["c.fa", "g.dot", "p.path", "-o", "o", "-s", "s"],
+    "rresolver": ["c.fa", "g.dot", "r.fq", "-k", "25"],
+    "consensus": ["c.fa", "r.fq"], "gapfill": ["c.fa", "r.fq", "-k", "25",
+                                               "-o", "o"],
+    "paired-dbg": ["r.fq", "-k", "50", "-K", "25"],
+    "kmerprint": ["r.fq", "-k", "11"], "logcounter": ["r.fq", "-k", "15"],
+    "samtobreak": ["c.fa", "c.fa"], "tigmint": ["c.fa", "r.fq", "-o", "o"],
+    "arcs": ["c.fa", "r.fq"], "bwa": ["c.fa", "r.fq"],
+    "bwamem": ["c.fa", "r.fq"], "bowtie2": ["c.fa", "r.fq"],
+    "kaligner": ["c.fa", "r.fq"], "dida": ["c.fa", "r.fq"]}
+
+
+@pytest.mark.parametrize("tool", sorted(DEVICE_TOOL_ARGS))
+def test_device_tools_default_to_cuda(no_card, tmp_path, monkeypatch,
+                                      tool):
+    """Without a card each device tool raises, by default and with
+    --device cuda, before it writes anything."""
+    import importlib
+    from abyss_tpu_torch.__main__ import TOOLS
+    _, module, fn = TOOLS[tool]
+    main = getattr(importlib.import_module(module), fn)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "c.fa").write_text(">c\n" + "ACGTTGCA" * 20 + "\n")
+    for extra in ([], ["--device", "cuda"]):
+        out = io.StringIO()
+        with pytest.raises(RuntimeError, match="no CUDA device"), \
+                contextlib.redirect_stdout(out):
+            main(DEVICE_TOOL_ARGS[tool] + extra)
+        assert out.getvalue() == ""
+    assert sorted(os.listdir(tmp_path)) == ["c.fa"]
+
+
+def test_every_dispatched_device_flag_is_listed():
+    """The tools whose parser takes --device are exactly those above."""
+    import argparse
+    import importlib
+    from abyss_tpu_torch.__main__ import TOOLS
+    seen = set()
+
+    class Probe(Exception):
+        pass
+
+    def parse_args(self, argv=None, namespace=None):
+        raise Probe("--device" in self._option_string_actions)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+        for name, (_, module, fn) in TOOLS.items():
+            if name in ("pe", "stack-size", "fac", "bloom"):
+                continue        # key=value arguments, or a dispatcher
+            with pytest.raises(Probe) as got:
+                getattr(importlib.import_module(module), fn)([])
+            if got.value.args[0]:
+                seen.add(name)
+    assert seen == set(DEVICE_TOOL_ARGS) | {"bloom-dbg", "assemble",
+                                            "konnector", "sealer"}

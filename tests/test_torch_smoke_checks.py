@@ -98,7 +98,8 @@ def test_sealer_gate_excuses_only_a_short_overlap(case, excused):
     (["sealer"], ["pe", "sealer"]),
     (["walk"], ["kernel", "main", "walk"]),
     (["paired_parity", "konnector"],
-     ["parity", "pe_parity", "konnector", "paired_parity"])])
+     ["parity", "pe_parity", "konnector", "paired_parity"]),
+    (["tools", "tools_parity"], ["parity", "tools_parity", "tools"])])
 def test_phase_selection_runs_prerequisites(names, want):
     assert chip_smoke.phases_to_run(names) == want
 
@@ -124,3 +125,17 @@ def test_patches_come_undone():
     assert mod.g(3) == -3
     spans.restore()
     assert (mod.f, mod.g) == orig
+
+
+def test_suffix_order_and_host_search():
+    """The tools phase's checks of the genome's suffix array and of
+    FM-index queries: a host search finds overlapping occurrences, and
+    the order check refuses a swapped pair."""
+    import numpy as np
+    assert chip_smoke._host_find_all("AAAA", "AA") == [0, 1, 2]
+    assert chip_smoke._host_find_all("ACGT", "GG") == []
+    tb = bytes([2, 1, 2, 1, 0])
+    sa = np.array([4, 3, 1, 2, 0])          # "$" < "A$" < "ACA$" < ...
+    assert chip_smoke._suffix_order_ok(tb, sa, range(4))
+    sa[[1, 2]] = sa[[2, 1]]
+    assert not chip_smoke._suffix_order_ok(tb, sa, range(4))
