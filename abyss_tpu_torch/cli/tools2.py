@@ -961,12 +961,10 @@ def kmerprint_main(argv=None):
     return 0
 
 
-def logcounter(reads, k: int, size: int, device="cuda",
-               max_batches: int | None = None):
+def logcounter(reads, k: int, size: int, device="cuda"):
     """Insert every valid k-mer of the reads into a PLC array of `size`
     cells on `device`, the cell of a k-mer being its canonical ntHash
-    mod size.  Returns (the PLCArray, the k-mers inserted).  Stops after
-    `max_batches` batches of [4096, 512] when given."""
+    mod size.  Returns (the PLCArray, the k-mers inserted)."""
     import torch
     from .. import u64
     from ..io import read_batches
@@ -975,9 +973,7 @@ def logcounter(reads, k: int, size: int, device="cuda",
     dev = resolve_device(device)
     plc = PLCArray(size, device=dev)
     n = 0
-    for i, batch in enumerate(read_batches(reads, 4096, 512)):
-        if max_batches is not None and i >= max_batches:
-            break
+    for batch in read_batches(reads, 4096, 512):
         canon, valid = nthash.canonical_hashes(
             torch.from_numpy(batch.codes).to(dev), k)
         idx = u64.umod(canon.reshape(-1), size)[valid.reshape(-1)]

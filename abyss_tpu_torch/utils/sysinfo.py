@@ -8,17 +8,13 @@ progress messages (Assembly/DBG.h:267-274).
 from __future__ import annotations
 
 import os
-import sys
 
 
 def signal_init() -> None:
     """Install fault backtraces (SignalHandler::signalInit parity):
-    SIGSEGV/SIGBUS/SIGABRT dump Python tracebacks of all threads to the
-    process's standard error, also when a caller that runs the
-    dispatcher in-process has replaced sys.stderr with an object that
-    has no file descriptor (abyss_tpu's raises there)."""
+    SIGSEGV/SIGBUS/SIGABRT dump Python tracebacks of all threads."""
     import faulthandler
-    faulthandler.enable(file=sys.__stderr__, all_threads=True)
+    faulthandler.enable(all_threads=True)
 
 
 def memory_usage_bytes() -> int:

@@ -135,8 +135,8 @@ Phases, each printing one JSON line:
           reset just before and read just after: wall time, one ntHash and
           one scatter-max launch per batch, k-mers inserted (equal to the
           windows the CPU port marks valid), the counters' sha256 and
-          nonzero cells; the first 4 batches again on the card and on the
-          CPU (counters equal); the decoded counts of 1,000 genome k-mers
+          nonzero cells; the first 4 x 4,096 reads again (the first
+          file's head) on the card and on the CPU (counters equal); the decoded counts of 1,000 genome k-mers
           against their exact counts in the reads (median ratio in
           0.5-2); the scatter-max kernel against its plain version on one
           logcounter batch (the `scatter_max_plc` row).  Then
@@ -153,7 +153,8 @@ exact_pe, wide, paired and konnector paths, its times at three shapes
 and launches x (ms - bound_ms) summed over every shape of the main,
 pe, wide and paired runs; for scatter-max also its launches on the
 konnector cascade path and its PLC shape; for both, their launches on
-the logcounter path),
+the logcounter path), a `total` row (the run's wall time in seconds
+from the script's start, the kernels' build included),
 and as the last line
 {"ok": true, "device": {...}} (a run of named phases prints no
 `kernels` line).  Any failed check exits non-zero before the last
@@ -173,6 +174,7 @@ import sys
 import tempfile
 import time
 
+START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 # H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes (4 partitions of
@@ -2659,8 +2661,8 @@ def phase_tools(tmp: str, paths, genome: str) -> tuple:
     reset just before and read just after: wall time, k-mers inserted
     (equal to the windows the CPU port marks valid), the counters'
     sha256 and nonzero cells, one scatter-max batch kept for the replay;
-    the first LOGCOUNTER_HELD_BATCHES batches on the card and on the CPU
-    (counters equal); the decoded counts of PLC_SAMPLE_KMERS genome
+    the first LOGCOUNTER_HELD_BATCHES x 4,096 reads on the card and on the
+    CPU (counters equal); the decoded counts of PLC_SAMPLE_KMERS genome
     k-mers against their exact counts in the reads.  Then FMIndex.build
     of the genome (the device suffix array: rounds, wall time, a
     permutation in suffix order at FM_ORDER_PAIRS sampled places),
@@ -2756,12 +2758,14 @@ def phase_tools(tmp: str, paths, genome: str) -> tuple:
           f"{PLC_MEDIAN_RATIO}")
     del plc, runs, counters
     torch.cuda.empty_cache()
-    # the first batches on the card and on the CPU
+    # the first batches on the card and on the CPU: read_batches takes
+    # the files in turn, so these are the first reads of the first file
+    head = os.path.join(tmp, "logcounter_head.fq")
+    _head_fastq(paths[0], head, LOGCOUNTER_HELD_BATCHES * 4096)
     held = {}
     for device in ("cuda", "cpu"):
         t1 = time.perf_counter()
-        arr, m = tools2.logcounter(paths, k, size, device,
-                                   max_batches=LOGCOUNTER_HELD_BATCHES)
+        arr, m = tools2.logcounter([head], k, size, device)
         held[device] = (arr.counters.cpu(), m, time.perf_counter() - t1)
         del arr
     check(held["cuda"][1] == held["cpu"][1] and
@@ -2996,6 +3000,7 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     if run != set(PHASES):
+        emit({"phase": "total", "wall_s": time.perf_counter() - START})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
@@ -3057,6 +3062,7 @@ def main(argv=None) -> int:
             ("walk_cascade", walk_cu, fast_extend, casc_row, walk_cascade),
             ("branch_cascade", walk_cu, branch_depths, casc_row,
              branch_cascade))]})
+    emit({"phase": "total", "wall_s": time.perf_counter() - START})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

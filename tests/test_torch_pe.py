@@ -199,9 +199,10 @@ def test_external_aligner_missing_falls_back_to_the_mapper(runs, tmp_path,
     assert read(tmp_path / f"{NAME}-8.fa") == read(jdir / f"{NAME}-8.fa")
 
 
-def test_cli_resumes_and_prints_stats(runs, tmp_path, capsys, monkeypatch):
+def test_cli_resumes_and_prints_stats(runs, tmp_path, capfd, monkeypatch):
     """`python -m abyss_tpu_torch pe ... device=cpu` in a directory that
-    holds a finished run prints its stats table."""
+    holds a finished run prints its stats table.  (capfd: the dispatcher
+    points faulthandler at sys.stderr, which needs a file descriptor.)"""
     from abyss_tpu_torch import __main__ as cli
     reads, jdir, _ = runs
     for name in ARTIFACTS:
@@ -211,7 +212,7 @@ def test_cli_resumes_and_prints_stats(runs, tmp_path, capsys, monkeypatch):
             "device=cpu", "v=0"]
     monkeypatch.setattr(sys, "argv", argv)
     assert cli.main() in (None, 0)
-    assert capsys.readouterr().out == read(
+    assert capfd.readouterr().out == read(
         jdir / f"{NAME}-stats.tab").decode()
     p = tpe.parse_params(argv[2:])
     assert p.device == "cpu" and p.min_pairs == 5

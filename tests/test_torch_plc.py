@@ -132,10 +132,6 @@ def test_logcounter_matches_jax(tmp_path):
     assert tn == n > 0
     np.testing.assert_array_equal(ta.counters.numpy(),
                                   np.asarray(ja.counters))
-    first, n1 = tools2.logcounter([p1, p2], k, size, device="cpu",
-                                  max_batches=1)
-    assert 0 < n1 < n
-    assert not torch.equal(first.counters, ta.counters)
 
 
 def test_unsigned_remainder():

@@ -16,12 +16,14 @@ records the same keys.
 """
 
 import contextlib
+import faulthandler
 import importlib
 import io
 import os
 import shutil
 import sqlite3
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -257,28 +259,40 @@ def _tree(root) -> dict:
     return out
 
 
-def _no_jax_signal_init(monkeypatch):
-    """abyss_tpu's dispatcher points faulthandler at sys.stderr, which
-    raises when that is a StringIO, as here (the port's uses the
-    process's standard error)."""
-    from abyss_tpu.utils import sysinfo
-    monkeypatch.setattr(sysinfo, "signal_init", lambda: None)
+@contextlib.contextmanager
+def _captured():
+    """stdout to a StringIO and stderr to a temporary file.  Both
+    dispatchers point faulthandler at sys.stderr, which must have a file
+    descriptor (ROADMAP C); faulthandler goes back to the process's
+    standard error before the file closes."""
+    out = io.StringIO()
+    with tempfile.TemporaryFile("w+") as err:
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                yield out, err
+        finally:
+            faulthandler.enable(file=sys.__stderr__, all_threads=True)
+
+
+def _text(f) -> str:
+    f.flush()
+    f.seek(0)
+    return f.read()
 
 
 def _dispatch(pkg, argv, workdir, monkeypatch):
     """Run `python -m <pkg> <argv>` in-process from workdir: (exit code
     or the exception raised, stdout, stderr)."""
     mod = importlib.import_module(pkg + ".__main__")
-    _no_jax_signal_init(monkeypatch)
     monkeypatch.setattr(sys, "argv", [pkg] + list(argv))
     monkeypatch.chdir(workdir)
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    with _captured() as (out, err):
         try:
             result = mod.main()
         except Exception as e:  # the same exception from both packages
             result = e
-    return result, out.getvalue(), err.getvalue()
+        return result, out.getvalue(), _text(err)
 
 
 def _run_both(inputs, tmp_path, monkeypatch, tool, args):
@@ -339,10 +353,8 @@ def test_help_lists_the_same_tools(monkeypatch):
     outs = {}
     for pkg in ("abyss_tpu", "abyss_tpu_torch"):
         mod = importlib.import_module(pkg + ".__main__")
-        _no_jax_signal_init(monkeypatch)
         monkeypatch.setattr(sys, "argv", [pkg, "--help"])
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
+        with _captured() as (out, _):
             assert mod.main() == 0
         outs[pkg] = out.getvalue().splitlines()
     assert outs["abyss_tpu_torch"][0] == \
