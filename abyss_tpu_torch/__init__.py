@@ -6,14 +6,16 @@ numpy only: never jax, and never a module of `abyss_tpu`.
 
 Ported: the `pe` pipeline (`pipeline/pe.py`: stages 1 to 8, 10 and
 stats, with the bloom engine or the exact hash-DBG engine, colour space,
-lr=, long=, K= and sealer_ks=), and the whole tool suite of `python -m
+lr=, long=, K=, sealer_ks= and stage 1 over np= x nh= devices on a
+single-process mesh, `parallel/`), and the whole tool suite of `python -m
 abyss_tpu_torch` (`__main__.py`: the 56 tools of `python -m abyss_tpu`,
 among them `bloom-dbg`, `assemble`, `paired-dbg`, `konnector`,
 `sealer`, `abyss-bloom`, `logcounter` with its PLC counters in
 `ops/plc.py`, and the FM-index tools over `align/fmindex.py`), with
 hand-written CUDA kernels: the canonical ntHash (`csrc/nthash.cu`), the
 scatter-max of the counting filter and the PLC array
-(`csrc/scatter_max.cu`) and the unitig walks (`csrc/walk.cu`).
+(`csrc/scatter_max.cu`) and the unitig walks (`csrc/walk.cu`, also over
+a counting filter sharded across a mesh).
 
 Hashes and keys are `torch.int64` tensors holding the bit pattern of
 the JAX package's `uint64` values; `u64.py` holds the unsigned helpers.

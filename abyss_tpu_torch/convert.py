@@ -19,7 +19,11 @@ text), which `dbg.hash_dbg.load_snapshot` and `save_snapshot` of
 either package read and write; the paired DBG's is its pair table
 (`pair_table_from_numpy`).  The Konnector device search takes the
 sorted filter (`from_numpy_state`) and host numpy arrays, the same in
-both packages.  The pipeline's own state between stages
+both packages.  The mesh engines' state is sharded: the distributed
+exact engine's ShardedKmerTable (`sharded_table_from_numpy`, from the
+per-shard arrays of abyss_tpu's table) and a counting filter whose
+counters stay split over a mesh's "shard" axis
+(`sharded_filter_from_numpy`).  The pipeline's own state between stages
 is its artifact files, which both packages read.
 """
 
@@ -137,3 +141,53 @@ def pair_table_from_numpy(k: int, K: int, keys: np.ndarray,
                      np.asarray(alive, bool).copy(), u(fa), u(ra), u(fb),
                      u(rb), np.asarray(text, np.uint8).copy(),
                      device=str(device))
+
+
+def sharded_table_from_numpy(mesh, k: int, keys: np.ndarray,
+                             counts: np.ndarray, alive: np.ndarray,
+                             nbr: np.ndarray | None = None,
+                             nbr_strand: np.ndarray | None = None,
+                             hr: np.ndarray | None = None,
+                             text: np.ndarray | None = None,
+                             fwd_counts: np.ndarray | None = None):
+    """The distributed exact engine's ShardedKmerTable on the port's
+    mesh (parallel/mesh.Mesh, as many devices as abyss_tpu's table has
+    shards) from the per-shard arrays of abyss_tpu's ShardedKmerTable
+    (as numpy, [D, S, ...]: keys and hr uint64, counts and fwd_counts
+    int32, alive bool, nbr int64 [D, S, 8], nbr_strand int8, text uint64
+    [D, S, W]); shard d goes to the mesh's device d."""
+    from .parallel.sharded_table import ShardedKmerTable
+
+    def shards(a, dtype, words=False):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if words:
+            return [u64.from_numpy(a[d].astype(np.uint64), dev)
+                    for d, dev in enumerate(mesh.flat)]
+        return [torch.from_numpy(np.array(a[d], dtype)).to(dev)
+                for d, dev in enumerate(mesh.flat)]
+
+    if np.asarray(keys).shape[0] != mesh.size:
+        raise ValueError(f"{np.asarray(keys).shape[0]} shards for a mesh of "
+                         f"{mesh.size} devices")
+    return ShardedKmerTable(
+        mesh, int(k), shards(keys, None, True), shards(counts, np.int32),
+        shards(alive, bool), nbr=shards(nbr, np.int64),
+        nbr_strand=shards(nbr_strand, np.int8), hr=shards(hr, None, True),
+        text=shards(text, None, True),
+        fwd_counts=shards(fwd_counts, np.int32))
+
+
+def sharded_filter_from_numpy(mesh, counters: np.ndarray, k: int,
+                              threshold: int, num_hashes: int = 4):
+    """A ShardedCountingFilter on the port's ("data", "shard") mesh from
+    abyss_tpu's sharded counters (as numpy: the global uint8 [size]
+    array, as jax.device_get returns it); each device takes its shard's
+    index range."""
+    from .parallel.distributed import ShardedCountingFilter, shard_counters
+    counters = np.asarray(counters, np.uint8)
+    size = counters.shape[0]
+    return ShardedCountingFilter(
+        mesh, shard_counters(mesh, torch.from_numpy(counters.copy())), k,
+        num_hashes, threshold, size)

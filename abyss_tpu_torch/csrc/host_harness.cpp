@@ -82,6 +82,14 @@ walk::CascadeSolid cascade_solid(const uint8_t* levels, int64_t size,
                               num_hashes, depth};
 }
 
+walk::ShardedSolid sharded_solid(const uint64_t* shards, int64_t size,
+                                 int log2_len, int hash_k, int num_hashes,
+                                 int threshold) {
+    return walk::ShardedSolid{
+        reinterpret_cast<const unsigned long long*>(shards),
+        uint64_t(size - 1), log2_len, hash_k, num_hashes, threshold};
+}
+
 // walk.cu branch_kernel: each root searched by a group of members, the
 // host thread playing each in turn, its frontier in a buffer of the
 // kernel's layout.
@@ -202,6 +210,46 @@ extern "C" void branch_cascade_host(const uint8_t* roots, int64_t N, int k,
     branch_loop(roots, N, k, f0, r0,
                 cascade_solid(levels, size, hash_k, num_hashes, depth),
                 max_depth, W, H, depth_out, probes);
+}
+
+// walk_host on a counting filter split into shards: shards holds the
+// host addresses of the shards (walk.cu walk_sharded_launch).
+extern "C" void walk_sharded_host(uint8_t* buf, int64_t P, int64_t BUF,
+                                  int64_t* length, uint64_t* f, uint64_t* r,
+                                  int8_t* status, const uint64_t* seed_canon,
+                                  uint8_t* has_prev, const uint64_t* shards,
+                                  int64_t size, int log2_len, int hash_k,
+                                  int num_hashes, int threshold, int k,
+                                  int64_t max_steps) {
+    walk_loop(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+              sharded_solid(shards, size, log2_len, hash_k, num_hashes,
+                            threshold),
+              k, max_steps);
+}
+
+// branch_host on a counting filter split into shards (walk.cu
+// branch_sharded_launch).
+extern "C" void branch_sharded_host(const uint8_t* roots, int64_t N, int k,
+                                    const uint64_t* f0, const uint64_t* r0,
+                                    const uint64_t* shards, int64_t size,
+                                    int log2_len, int hash_k, int num_hashes,
+                                    int threshold, int max_depth, int W,
+                                    int H, int32_t* depth, int64_t* probes) {
+    branch_loop(roots, N, k, f0, r0,
+                sharded_solid(shards, size, log2_len, hash_k, num_hashes,
+                              threshold),
+                max_depth, W, H, depth, probes);
+}
+
+// ShardedSolid's test of each of the n keys q: solid[j] = 1 when all H
+// counters of q[j] reach the threshold (ShardedCountingFilter.contains).
+extern "C" void sharded_solid_host(const uint64_t* q, int64_t n,
+                                   uint8_t* solid, const uint64_t* shards,
+                                   int64_t size, int log2_len, int hash_k,
+                                   int num_hashes, int threshold) {
+    const walk::ShardedSolid s = sharded_solid(shards, size, log2_len, hash_k,
+                                               num_hashes, threshold);
+    for (int64_t j = 0; j < n; ++j) solid[j] = s(q[j]) ? 1 : 0;
 }
 
 // scatter_max.cu: every update in order, one at a time.

@@ -13,13 +13,18 @@
 // whole loop in one launch.  Lanes and roots are independent, so a
 // group each gives the lock-step result exactly.
 //
-// Each kernel comes in three variants of its solidity test (walk.cuh):
+// Each kernel comes in four variants of its solidity test (walk.cuh):
 // the walk table of the sorted filter (walk_launch, branch_launch), the
 // counting Bloom filter (walk_bloom_launch, branch_bloom_launch), where
 // a test reads H counters at hashed places instead of one 64-byte table
-// window, and the cascading Bloom filter of `konnector --cascade`
+// window, the cascading Bloom filter of `konnector --cascade`
 // (walk_cascade_launch, branch_cascade_launch), where it reads H bytes
-// in each of the cascade's L levels.
+// in each of the cascade's L levels, and the counting filter split into
+// shards over a device mesh, `pe np=4` and up
+// (walk_sharded_launch, branch_sharded_launch), where each of the H
+// counters is read from its shard, through an array of the shards'
+// addresses; a shard on another card is read by peer access
+// (walk_enable_peer).
 //
 // What bounds them: the latency of chains of dependent random probes,
 // not bytes.  A walk step tests 8 candidates at random places in a table
@@ -172,6 +177,14 @@ walk::CascadeSolid cascade_solid(const uint8_t* levels, int64_t size,
                               num_hashes, depth};
 }
 
+walk::ShardedSolid sharded_solid(const int64_t* shards, int64_t size,
+                                 int log2_len, int hash_k, int num_hashes,
+                                 int threshold) {
+    return walk::ShardedSolid{
+        reinterpret_cast<const unsigned long long*>(shards),
+        uint64_t(size - 1), log2_len, hash_k, num_hashes, threshold};
+}
+
 int64_t scratch_bytes(int W, int H, int k) {
     const int64_t bytes = walk::frontier_bytes(W, H, k);
     return ROOTS_PER_BLOCK * bytes <= SHARED_BYTES ? 0 : bytes;
@@ -313,4 +326,57 @@ extern "C" int branch_cascade_launch(const uint8_t* roots, int64_t N, int k,
     return branch_run(roots, N, k, f0, r0,
                       cascade_solid(levels, size, hash_k, num_hashes, depth),
                       max_depth, W, H, scratch, depth_out, probes, stream);
+}
+
+// walk_launch on a counting filter split into shards: shards int64
+// [size >> log2_len] device array of the shards' addresses, each uint8
+// [1 << log2_len] on this card or on a card whose memory it can read
+// (walk_enable_peer); size a power of two; hash_k, num_hashes and
+// threshold are the filter's.
+extern "C" int walk_sharded_launch(uint8_t* buf, int64_t P, int64_t BUF,
+                                   int64_t* length, int64_t* f, int64_t* r,
+                                   int8_t* status, const int64_t* seed_canon,
+                                   bool* has_prev, const int64_t* shards,
+                                   int64_t size, int log2_len, int hash_k,
+                                   int num_hashes, int threshold, int k,
+                                   int64_t max_steps, void* stream) {
+    return walk_run(buf, P, BUF, length, f, r, status, seed_canon, has_prev,
+                    sharded_solid(shards, size, log2_len, hash_k, num_hashes,
+                                  threshold),
+                    k, max_steps, stream);
+}
+
+// branch_launch on a counting filter split into shards (see
+// walk_sharded_launch).
+extern "C" int branch_sharded_launch(const uint8_t* roots, int64_t N, int k,
+                                     const int64_t* f0, const int64_t* r0,
+                                     const int64_t* shards, int64_t size,
+                                     int log2_len, int hash_k,
+                                     int num_hashes, int threshold,
+                                     int max_depth, int W, int H,
+                                     uint8_t* scratch, int32_t* depth,
+                                     int64_t* probes, void* stream) {
+    return branch_run(roots, N, k, f0, r0,
+                      sharded_solid(shards, size, log2_len, hash_k,
+                                    num_hashes, threshold),
+                      max_depth, W, H, scratch, depth, probes, stream);
+}
+
+// Let the current card read card `peer`'s memory (a shard of a sharded
+// filter there): 0 when it can and access is on, else the CUDA error.
+extern "C" int walk_enable_peer(int peer) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return int(err);
+    if (dev == peer) return 0;
+    int can = 0;
+    err = cudaDeviceCanAccessPeer(&can, dev, peer);
+    if (err != cudaSuccess) return int(err);
+    if (!can) return int(cudaErrorPeerAccessUnsupported);
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clear it
+        return 0;
+    }
+    return int(err);
 }

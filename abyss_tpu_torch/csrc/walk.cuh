@@ -20,10 +20,13 @@
 //
 // Both take the solidity test of a canonical k-mer hash as a template
 // parameter: `TableSolid`, the open-addressing walk table of a sorted
-// filter's solid keys (ops/hash_probe.ProbeSet), or `BloomSolid`, the
+// filter's solid keys (ops/hash_probe.ProbeSet), `BloomSolid`, the
 // counting Bloom filter's "min over the H counters >= threshold"
-// (ops/bloom.CountingBloomFilter.contains).  Each issues all of its loads
-// before it looks at any of them, so a test costs one memory round trip.
+// (ops/bloom.CountingBloomFilter.contains), `CascadeSolid`, the cascading
+// Bloom filter's, or `ShardedSolid`, BloomSolid's test on counters split
+// into shards (parallel/distributed.ShardedCountingFilter).  Each issues
+// all of its loads before it looks at any of them, so a test costs one
+// memory round trip (two for ShardedSolid: shard address, then counter).
 //
 // Like nthash.cuh, every function is `__host__ __device__` and plain C++
 // otherwise, so g++ compiles it too: the CPU test suite runs both over
@@ -200,6 +203,43 @@ struct CascadeSolid {
                                                : 1;
                 for (int j = 0; j < BLOOM_BATCH; ++j) ok &= c[j] > 0;
             }
+        }
+        return ok;
+    }
+};
+
+// Solid = BloomSolid's test on a counting filter whose counters are split
+// by index range into shards (parallel/distributed.ShardedCountingFilter):
+// counter idx lies at shards[idx >> log2_len][idx & (shard_len - 1)].
+// `shards` holds the shards' base addresses (device memory on the card,
+// read through the read-only cache; a shard on another card is read by
+// peer access).  Each counter's shard address is loaded before its
+// counter, all BLOOM_BATCH of them before any counter.
+struct ShardedSolid {
+    const unsigned long long* shards;  // [size >> log2_len] addresses
+    uint64_t mask;                     // size - 1
+    int log2_len;                      // log2(shard_len)
+    int k;                             // the filter's k (its extra hashes)
+    int num_hashes;
+    int threshold;
+    NT_HD bool operator()(uint64_t q) const {
+        const uint64_t in_shard = (uint64_t(1) << log2_len) - 1;
+        bool ok = true;
+        for (int i0 = 0; i0 < num_hashes; i0 += BLOOM_BATCH) {
+            uint64_t idx[BLOOM_BATCH];
+            const uint8_t* base[BLOOM_BATCH];
+            for (int j = 0; j < BLOOM_BATCH; ++j) {
+                const int i = i0 + j;
+                idx[j] = (i == 0 ? q : nthash::nte64(q, k, i)) & mask;
+                base[j] = reinterpret_cast<const uint8_t*>(
+                    WALK_LDG(shards + (idx[j] >> log2_len)));
+            }
+            int c[BLOOM_BATCH];
+            for (int j = 0; j < BLOOM_BATCH; ++j)
+                c[j] = i0 + j < num_hashes
+                           ? int(WALK_LDG(base[j] + (idx[j] & in_shard)))
+                           : threshold;
+            for (int j = 0; j < BLOOM_BATCH; ++j) ok &= c[j] >= threshold;
         }
         return ok;
     }

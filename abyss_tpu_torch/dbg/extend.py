@@ -21,8 +21,10 @@ PyTorch idiom: on a CUDA device the JAX loops are hand-written kernels
 walks each lane with a group of 8 threads (a step's 8 probes in flight
 at once), and `branch_depths`' `lax.scan` one launch that searches from
 each root with a warp (a thread per child of up to 8 frontier k-mers at
-once); each has a variant for the walk table of a sorted filter and one
-for a counting Bloom filter (`ext.walk_filter` picks the structure).
+once); each has a variant for the walk table of a sorted filter, one
+for a counting Bloom filter, one for a cascading Bloom filter and one
+for a counting filter sharded over a device mesh (`ext.walk_filter`
+picks the structure).
 On the CPU they are Python loops of tensor ops (`fast_extend_plain`,
 `branch_depths_plain`, the versions the kernels are held against).
 Testing "any lane still ACTIVE" there is a sync, so the walk loop tests
@@ -44,6 +46,7 @@ from ..core import alphabet
 from ..ops import hash_probe as hp
 from ..ops import kernels, nthash
 from ..ops.bloom import CascadingBloomFilter, CountingBloomFilter
+from ..parallel.distributed import ShardedCountingFilter
 
 # path status codes (superset of PathExtensionResultCode, ExtendPath.h:47-57)
 ACTIVE = 0
@@ -207,11 +210,12 @@ def fast_extend(cbf, st: ExtendState, k: int,
     On a CUDA device this is one launch of the walk kernel
     (csrc/walk.cu, a group of 8 threads per lane, one per candidate of a
     step, updating the state in place; the walk filter must be
-    ext.walk_filter's ProbeSet, a CountingBloomFilter or a
-    CascadingBloomFilter).  On the CPU it is the plain loop of `_step`,
-    run until no lane is ACTIVE or max_steps steps have run; the
-    condition is tested after 1, 2, 4, ... CHECK_MAX steps (extra steps
-    are no-ops on non-ACTIVE lanes).  Both update st.buf in place."""
+    ext.walk_filter's ProbeSet, a CountingBloomFilter, a
+    CascadingBloomFilter or a ShardedCountingFilter).  On the CPU it is
+    the plain loop of `_step`, run until no lane is ACTIVE or max_steps
+    steps have run; the condition is tested after 1, 2, 4, ... CHECK_MAX
+    steps (extra steps are no-ops on non-ACTIVE lanes).  Both update
+    st.buf in place."""
     if st.buf.is_cuda:
         kernels.walk(_kernel_solid("fast_extend", cbf), st.buf, st.length,
                      st.f, st.r, st.status, st.seed_canon, st.has_prev, k,
@@ -222,15 +226,17 @@ def fast_extend(cbf, st: ExtendState, k: int,
 
 def _kernel_solid(fn: str, cbf):
     """What the walk kernels probe for walk filter `cbf`: a ProbeSet's
-    table, a CountingBloomFilter or a CascadingBloomFilter; raises for
-    anything else."""
+    table, a CountingBloomFilter, a CascadingBloomFilter or a
+    ShardedCountingFilter; raises for anything else."""
     if isinstance(cbf, hp.ProbeSet):
         return cbf.tab
-    if isinstance(cbf, (CountingBloomFilter, CascadingBloomFilter)):
+    if isinstance(cbf, (CountingBloomFilter, CascadingBloomFilter,
+                        ShardedCountingFilter)):
         return cbf
     raise TypeError(f"{fn} on a CUDA device probes a ProbeSet "
-                    "(ext.walk_filter), a CountingBloomFilter or a "
-                    f"CascadingBloomFilter, got {type(cbf).__name__}")
+                    "(ext.walk_filter), a CountingBloomFilter, a "
+                    "CascadingBloomFilter or a ShardedCountingFilter, got "
+                    f"{type(cbf).__name__}")
 
 
 def fast_extend_plain(cbf, st: ExtendState, k: int,
@@ -263,7 +269,8 @@ def branch_depths(cbf, root_codes: torch.Tensor, root_hashes, k: int,
     Returns int32[N].  On a CUDA device this is one launch of the branch
     kernel (csrc/walk.cu, a warp per root, a thread per child of up to
     8 frontier k-mers at once; the walk filter must be ext.walk_filter's
-    ProbeSet, a CountingBloomFilter or a CascadingBloomFilter); on the
+    ProbeSet, a CountingBloomFilter, a CascadingBloomFilter or a
+    ShardedCountingFilter); on the
     CPU, branch_depths_plain."""
     f0, r0 = root_hashes
     if f0.is_cuda:

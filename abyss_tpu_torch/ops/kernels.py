@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches = {"nthash": 0, "walk": 0, "branch": 0, "walk_bloom": 0,
             "branch_bloom": 0, "walk_cascade": 0, "branch_cascade": 0,
-            "scatter_max": 0}
+            "walk_sharded": 0, "branch_sharded": 0, "scatter_max": 0}
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
 
@@ -203,6 +203,11 @@ def _bind_walk(lib: ctypes.CDLL) -> None:
             ("branch_bloom_launch", I, root + [P, I64, I, I, I] + branch_rest),
             ("branch_cascade_launch", I,
              root + [P, I64, I, I, I] + branch_rest),
+            ("walk_sharded_launch", I,
+             lane + [P, I64, I, I, I, I, I, I64, P]),
+            ("branch_sharded_launch", I,
+             root + [P, I64, I, I, I, I] + branch_rest),
+            ("walk_enable_peer", I, [I]),
             ("walk_blocks", I64, [I64, I]), ("branch_blocks", I64, [I64]),
             ("branch_scratch_bytes", I64, [I, I, I])):
         fn = getattr(lib, name)
@@ -240,14 +245,53 @@ def _check(kernel: str, dev: torch.device, args: dict) -> None:
             raise ValueError(f"{kernel} kernel: {name} must be contiguous")
 
 
-def _solid(kernel: str, solid, args: dict):
+def _sharded(kernel: str, solid, dev: torch.device):
+    """The launch arguments of ShardedSolid for a sharded counting filter
+    (parallel/distributed.ShardedCountingFilter) probed from CUDA device
+    `dev`: its shards (uint8 [size / n_shard] each, n_shard a power of
+    two) lie on `dev` or on cards whose memory `dev` can read, which this
+    turns on; raises otherwise."""
+    shards = solid.shards
+    n = len(shards)
+    shard_len = solid.size // n
+    if n & (n - 1) or shard_len & (shard_len - 1) or shard_len < 1:
+        raise ValueError(f"{kernel} kernel: a sharded filter needs a power "
+                         "of two of shards of a power of two of counters")
+    if not (0 < solid.num_hashes < 1 << 16 and 0 <= solid.k < 1 << 16
+            and -(1 << 16) < solid.threshold < 1 << 16):
+        raise ValueError(f"{kernel} kernel: filter parameters out of range")
+    for s in shards:
+        if not s.is_cuda or dev.type != "cuda":
+            raise ValueError(f"{kernel} kernel: shard on {s.device}, probed "
+                             f"from {dev}: both must be CUDA devices")
+        if s.dtype != torch.uint8 or not s.is_contiguous() or \
+                tuple(s.shape) != (shard_len,):
+            raise ValueError(f"{kernel} kernel: each shard must be a "
+                             f"contiguous uint8 [{shard_len}] tensor")
+    lib = walk_lib()
+    for s in shards:
+        if s.device != dev:
+            with torch.cuda.device(dev):
+                err = lib.walk_enable_peer(s.device.index)
+            if err != 0:
+                raise RuntimeError(
+                    f"{kernel} kernel: {dev} cannot read the shard on "
+                    f"{s.device} (peer access: CUDA error {err})")
+    ptrs = solid.shard_pointers(dev)
+    return [ptrs.data_ptr(), solid.size, shard_len.bit_length() - 1,
+            solid.k, solid.num_hashes, solid.threshold], kernel + "_sharded"
+
+
+def _solid(kernel: str, solid, args: dict, dev: torch.device):
     """The launch arguments and launch-count name of a walk kernel's
     solidity test: `solid` is the walk table (int64 [size + 8], size a
     power of two, ops/hash_probe.ProbeSet.tab), a counting Bloom filter
     (its counters uint8 [size + 1], size a power of two, and its k,
-    num_hashes and threshold) or a cascading Bloom filter (its levels
-    uint8 [depth, size + 1], and its k and num_hashes).  Adds the array
-    to `args` for _check."""
+    num_hashes and threshold), a cascading Bloom filter (its levels
+    uint8 [depth, size + 1], and its k and num_hashes) or a sharded
+    counting filter (_sharded).  Adds the array to `args` for _check."""
+    if hasattr(solid, "shards"):
+        return _sharded(kernel, solid, dev)
     if isinstance(solid, torch.Tensor):
         size = solid.shape[0] - 8
         if solid.dim() != 1 or size < 1 or size & (size - 1):
@@ -280,8 +324,10 @@ def walk(solid, buf: torch.Tensor, length: torch.Tensor,
     dbg/extend.fast_extend's plain loop.
 
     solid: the walk table (int64 [size + 8], ops/hash_probe.build), a
-    CountingBloomFilter or a CascadingBloomFilter (ops/bloom), whose
-    variants count as launches["walk_bloom"] and ["walk_cascade"]; buf: uint8 [P, BUF]; length/f/r/seed_canon:
+    CountingBloomFilter or a CascadingBloomFilter (ops/bloom) or a
+    ShardedCountingFilter (parallel/distributed), whose variants count
+    as launches["walk_bloom"], ["walk_cascade"] and ["walk_sharded"];
+    buf: uint8 [P, BUF]; length/f/r/seed_canon:
     int64 [P]; status: int8 [P]; has_prev: bool [P]; all contiguous on
     one CUDA device."""
     args = dict(buf=(buf, torch.uint8),
@@ -289,8 +335,8 @@ def walk(solid, buf: torch.Tensor, length: torch.Tensor,
                 r=(r, torch.int64), status=(status, torch.int8),
                 seed_canon=(seed_canon, torch.int64),
                 has_prev=(has_prev, torch.bool))
-    solid_args, name = _solid("walk", solid, args)
     dev = buf.device
+    solid_args, name = _solid("walk", solid, args, dev)
     _check("walk", dev, args)
     if buf.dim() != 2:
         raise ValueError("walk kernel: buf must be [P, BUF]")
@@ -321,9 +367,10 @@ def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
     """Forward look-ahead depth of each root k-mer (csrc/walk.cu
     branch_kernel): the same int32 [N] as dbg/extend.branch_depths_plain.
 
-    solid: the walk table, a CountingBloomFilter or a
-    CascadingBloomFilter, as for `walk` (the filter variants count as
-    launches["branch_bloom"] and ["branch_cascade"]); roots: uint8
+    solid: the walk table, a CountingBloomFilter, a CascadingBloomFilter
+    or a ShardedCountingFilter, as for `walk` (the filter variants count
+    as launches["branch_bloom"], ["branch_cascade"] and
+    ["branch_sharded"]); roots: uint8
     [N, k]; f0/r0: int64 [N] the roots' hashes; all contiguous on one
     CUDA device.  `probes` (int64 [N]), if given, receives each root's
     solidity tests as a sequential scan of each step's children in
@@ -336,7 +383,7 @@ def branch(solid, roots: torch.Tensor, f0: torch.Tensor,
                 f0=(f0, torch.int64), r0=(r0, torch.int64))
     if probes is not None:
         args["probes"] = (probes, torch.int64)
-    solid_args, name = _solid("branch", solid, args)
+    solid_args, name = _solid("branch", solid, args, dev)
     _check("branch", dev, args)
     if roots.dim() != 2 or roots.shape[1] != k or k < 1:
         raise ValueError(f"branch kernel: roots must be [N, k={k}]")

@@ -40,11 +40,13 @@ Stage map (bloom mode, cf. SURVEY.md §3.1 and bin/abyss-pe:553-749):
 Port of abyss_tpu/pipeline/pe.py: stages 1 to 8, 10 and stats with
 the bloom engine, the exact hash-DBG engine (engine=exact, packed or
 wide k) or the paired DBG (K=), gap sealing (sealer_ks=), colour-space
-input, lr= and long=, writing the JAX package's artifacts byte for
-byte.  Every stage that puts a tensor on a device takes `device`
-(default "cuda": without a card it raises unless "cpu").  The one
-branch not ported yet, np=/nh= above 1 (ROADMAP A12), raises
-NotImplementedError and never falls back to something else.
+input, lr= and long=, and stage 1 over np= x nh= devices
+(parallel/), writing the JAX package's artifacts byte for byte.  Every
+stage that puts a tensor on a device takes `device` (default "cuda":
+without a card it raises unless "cpu").  np=/nh= take their devices
+from parallel.mesh.devices(device): the visible cards, or on the CPU
+the virtual devices XLA_FLAGS gives JAX; with fewer devices than asked
+stage 1 runs on one, as abyss_tpu's does.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from .. import resolve_device
 from ..align import distance_est, fixmate, mapper, nw
@@ -64,6 +68,7 @@ from ..graph.contig_graph import ContigGraph, node
 from ..io import fastx
 from ..io import read_batches as io_read_batches
 from ..io.formats import read_dist_text, write_dist_text
+from ..parallel import mesh as pmesh
 from ..scaffold import path_algebra as pa
 from ..scaffold import path_consensus, path_overlap, scaffolder
 from ..scaffold import paths as pathtools
@@ -233,17 +238,14 @@ def _fresh(p: PipelineParams, out: str) -> bool:
     return not os.path.exists(out)
 
 
-def _unported(p: PipelineParams) -> str | None:
-    """What of `p` this port cannot run yet, with its ROADMAP item."""
-    if p.np_devices > 1 or p.n_hosts > 1:
-        return "np=/nh= above 1 (multi-device stage 1, ROADMAP A12)"
-    return None
-
-
 # -- stage 1: unitig assembly ----------------------------------------------
 
 
-def stage_unitigs_1(p: PipelineParams) -> str:
+def stage_unitigs_1(p: PipelineParams, devices: list | None = None) -> str:
+    """Stage 1: unitigs -> name-1.fa.  np=/nh= take their mesh from
+    `devices` (default parallel.mesh.devices(p.device), the visible
+    cards or the CPU's virtual devices; a list may repeat a device, so
+    one card runs a mesh of np)."""
     out = p.path("1.fa")
     if not _fresh(p, out):
         return out
@@ -273,12 +275,16 @@ def stage_unitigs_1(p: PipelineParams) -> str:
         _log(p, f"stage 1: exact hash-DBG assembly -> {out}")
         batches = [b.codes for b in io_read_batches(
             in_files, p.batch_size, p.max_read_len, q=p.q)]
-        contigs, _ = hash_dbg.assemble_reads(
-            batches, p.k, kc=p.kc,
-            erode_cov=p.e, erode_strand=p.E, tip_len=p.t,
-            auto_params=True, min_mean_cov=p.c,
-            bubble_len=(p.b - p.k + 1 if p.b is not None else None),
-            device=p.device)
+        total_dev = p.np_devices * p.n_hosts
+        avail = devices if devices is not None else pmesh.devices(p.device)
+        if total_dev > 1 and len(avail) >= total_dev:
+            contigs = exact_mesh_unitigs(p, avail, batches)
+        else:
+            contigs, _ = hash_dbg.assemble_reads(
+                batches, p.k, kc=p.kc,
+                erode_cov=p.e, erode_strand=p.E, tip_len=p.t,
+                auto_params=True, min_mean_cov=p.c,
+                bubble_len=_bubble_kmers(p), device=p.device)
         with open(out + ".tmp", "w") as f:
             for i, (seq, cov) in enumerate(contigs):
                 f.write(f">{i} {len(seq)} {cov}\n{seq}\n")
@@ -294,10 +300,90 @@ def stage_unitigs_1(p: PipelineParams) -> str:
                             batch_size=p.batch_size,
                             max_read_len=p.max_read_len,
                             verbose=p.verbose)
+    prebuilt = None
+    if p.np_devices > 1:
+        avail = devices if devices is not None else pmesh.devices(p.device)
+        if len(avail) >= p.np_devices:
+            prebuilt, params = bloom_mesh_filter(p, avail)
+        else:
+            _log(p, f"np={p.np_devices} requested but only "
+                    f"{len(avail)} devices; single-device build")
     with open(out + ".tmp", "w") as f:
-        bloom_dbg.assemble(in_files, params, out=f, device=p.device)
+        bloom_dbg.assemble(in_files, params, out=f,
+                           prebuilt_filter=prebuilt, device=p.device)
     os.rename(out + ".tmp", out)
     return out
+
+
+def _bubble_kmers(p: PipelineParams) -> int | None:
+    """b= (bases) as the exact engine's bubble bound in k-mers."""
+    return p.b - p.k + 1 if p.b is not None else None
+
+
+def exact_mesh_unitigs(p: PipelineParams, devices: list, batches) -> list:
+    """Stage 1 of the exact engine over np x nh devices (the first
+    np * nh of `devices`; one may repeat): with a power-of-two count the
+    whole phase machine on the mesh (parallel/sharded_table, a
+    ("host", "data") mesh when nh > 1), else the mesh k-mer count
+    (parallel/distributed) and the single-device phases on the first
+    device.  Returns [(sequence, coverage)]."""
+    from ..parallel import distributed as dist
+    from ..parallel import sharded_table as stbl
+    total_dev = p.np_devices * p.n_hosts
+    mesh = (pmesh.make_host_mesh(p.n_hosts, p.np_devices, devices)
+            if p.n_hosts > 1 else pmesh.make_mesh(p.np_devices, 1, devices))
+    if (total_dev & (total_dev - 1)) == 0:
+        # np= (ABYSS-P): every phase on the mesh, the table resident in
+        # owner shards; wide k keys the shards on ntHash fingerprints
+        _log(p, f"stage 1: mesh-sharded table over {total_dev} devices"
+                + (f" ({p.n_hosts} hosts x {p.np_devices})"
+                   if p.n_hosts > 1 else " (np=)"))
+        contigs, _ = stbl.assemble_sharded(
+            mesh, list(batches), p.k, kc=p.kc, erode_cov=p.e,
+            erode_strand=p.E, tip_len=p.t, auto_params=True,
+            min_mean_cov=p.c, bubble_len=_bubble_kmers(p))
+        return contigs
+    # other counts: mesh-parallel load, host merge of the pre-reduced
+    # per-device pairs, the remaining phases on one device
+    _log(p, f"stage 1: mesh k-mer count over {total_dev} devices (np=)")
+    batches = list(batches)
+    keys, counts = dist.distributed_count_kmers(
+        pmesh.make_mesh(total_dev, 1, mesh.flat), batches, p.k)
+    t = hash_dbg.KmerTable(p.k, keys, counts, np.ones(len(keys), bool),
+                           device=str(mesh.flat[0]))
+    # wide side arrays fill after kc + compaction
+    return hash_dbg.assemble_table(
+        t, kc=p.kc, erode_cov=p.e, erode_strand=p.E, tip_len=p.t,
+        auto_params=True, min_mean_cov=p.c, bubble_len=_bubble_kmers(p),
+        wide_fill_batches=batches if p.k > 32 else None)
+
+
+def bloom_mesh_filter(p: PipelineParams, devices: list):
+    """Pass 1 of the bloom engine over np devices (the first np of
+    `devices`; one may repeat): (filter, params for pass 2).  From np = 4
+    the mesh is (np / 2 data x 2 shard) and the filter stays sharded
+    (ShardedCountingFilter, every pass-2 probe shard-local plus a psum);
+    below, (np x 1) and a replicated CountingBloomFilter."""
+    from ..parallel import distributed as dist
+    if p.np_devices >= 4:
+        n_data, n_shard = p.np_devices // 2, 2
+    else:
+        n_data, n_shard = p.np_devices, 1
+    _log(p, f"stage 1: mesh filter build over {p.np_devices} "
+            f"devices (np=, {n_data} data x {n_shard} shard"
+            + (", shard-probed pass 2)" if n_shard > 1 else ")"))
+    mesh = pmesh.make_mesh(n_data, n_shard, devices)
+    size = 1 << (max(p.bloom_bytes, 2).bit_length() - 1)
+    filt = dist.distributed_filter_build(
+        mesh, (b.codes for b in io_read_batches(
+            p.assembly_files(), p.batch_size, p.max_read_len, q=p.q)),
+        p.k, num_hashes=p.num_hashes, threshold=p.kc, size=size,
+        sharded=n_shard > 1)
+    params = AssemblyParams(
+        k=p.k, num_hashes=p.num_hashes, min_cov=p.kc,
+        bloom_bytes=p.bloom_bytes, q=p.q, batch_size=p.batch_size,
+        max_read_len=p.max_read_len, verbose=p.verbose, filter_mode="bloom")
+    return filt, params
 
 
 # -- stages 1.dot-3: graph cleanup -> unitigs ------------------------------
@@ -830,15 +916,10 @@ def stage_stats(p: PipelineParams) -> str:
 
 def run(p: PipelineParams) -> dict[str, str]:
     """Run the full pipeline; returns artifact paths.  Raises
-    NotImplementedError for a branch the port does not have yet, and
     RuntimeError for device="cuda" without a card."""
     from . import cs as cs_mod
     t0 = time.time()
     resolve_device(p.device)
-    missing = _unported(p)
-    if missing:
-        raise NotImplementedError(
-            f"abyss_tpu_torch pe: {missing} is not ported yet")
     os.makedirs(p.outdir, exist_ok=True)
     artifacts = {}
 

@@ -145,6 +145,34 @@ Phases, each printing one JSON line:
           sampled places), count and locate of 1,000 40-mers against a
           host search, and the suffix array of the first 2^21 bases on
           the card and on the CPU (equal).
+  mesh_parity  pe's stage 1 over np x nh devices (pe.stage_unitigs_1
+          with an explicit mesh) on the parity phase's reads, on a mesh of
+          copies of the card and of the CPU: the sharded exact engine at
+          k = 31 and k = 64 (np = 4), the non-power-of-two mesh count (np
+          = 3), the 2 x 2 host mesh, and the bloom engine (B=4M) at np =
+          2 (the filter replicated) and np = 4 (sharded, pass 2 through
+          walk_sharded): name-1.fa byte-identical, each card run's
+          launches; with two cards or more the np x nh = 4 runs again on
+          a mesh of distinct cards.
+  mesh_exact  pe's stage 1, engine=exact, np = 4 on four copies of the
+          card with pe's stage-1 arguments (k = 31, kc 2, e/E/c from the
+          coverage model) on the 4.6 Mbp reads, launch counts reset
+          around it: its contigs, with coverage, the exact_pe phase's
+          ex-1.fa as a set; each shard's rows, the phase spans, the
+          routing buckets that overflowed, peak memory.
+  mesh_bloom  pe's bloom stage 1 with B=1G (2^30 counters; pe's default
+          64 MiB is too small for these reads) on the 4.6 Mbp
+          reads at np = 2 (2 x 1, replicated filter, walk_bloom) and np
+          = 4 (2 x 2, sharded filter, walk_sharded), launch counts reset
+          around each: the sharded counters equal the replicated ones,
+          both FASTA files hold the same sequences (byte equality
+          reported), both pass the main phase's contig gates; then the
+          first 3 walk_sharded and branch_sharded launches of the np = 4
+          run replayed against their plain versions (and timed again
+          through walk_bloom and branch_bloom on the np = 2 run's
+          replicated counters, `bloom_ms`), and one load-step
+          scatter-max (a shard's counters with their sink slot) against
+          its plain version.
 
 Then one `kernels` JSON line (each kernel's launches on the path that
 runs it, and on the pe path for the kernels pe runs, error against its
@@ -153,7 +181,9 @@ exact_pe, wide, paired and konnector paths, its times at three shapes
 and launches x (ms - bound_ms) summed over every shape of the main,
 pe, wide and paired runs; for scatter-max also its launches on the
 konnector cascade path and its PLC shape; for both, their launches on
-the logcounter path), a `total` row (the run's wall time in seconds
+the logcounter path and the mesh bloom path, and scatter-max at the
+mesh load step's shape; walk_sharded and branch_sharded from the
+mesh_bloom np = 4 run), a `total` row (the run's wall time in seconds
 from the script's start, the kernels' build included),
 and as the last line
 {"ok": true, "device": {...}} (a run of named phases prints no
@@ -571,10 +601,12 @@ def phase_nthash_shapes(rec: NthashShapes, synthetic: dict) -> tuple:
 
 def _solid(wf) -> tuple:
     """(what the walk kernels probe, kernel-name suffix) for a path's
-    walk filter: a ProbeSet's table, a counting Bloom filter or a
-    cascading Bloom filter."""
+    walk filter: a ProbeSet's table, a counting Bloom filter, a
+    cascading Bloom filter or a sharded counting filter."""
     if hasattr(wf, "tab"):
         return wf.tab, ""
+    if hasattr(wf, "shards"):
+        return wf, "_sharded"
     return wf, "_cascade" if hasattr(wf, "levels") else "_bloom"
 
 
@@ -651,6 +683,8 @@ def _filter_bytes(wf) -> int:
     solid, variant = _solid(wf)
     if variant == "":
         return int(solid.numel() * solid.element_size())
+    if variant == "_sharded":
+        return int(sum(s.numel() for s in solid.shards))
     return int(solid.levels.numel() if variant == "_cascade"
                else solid.counters.numel())
 
@@ -772,10 +806,16 @@ class WalkCalls(Patches):
     scalar arguments, to replay each launch against its plain version
     after the run at the run's own shapes."""
 
-    def __init__(self):
+    def __init__(self, limit: int | None = None):
         super().__init__()
         self.walks: list = []
         self.branches: list = []
+        self.limit = limit          # launches of each kernel kept
+        self.seen = {"walk": 0, "branch": 0}
+
+    def _keep(self, kernel: str) -> bool:
+        self.seen[kernel] += 1
+        return self.limit is None or self.seen[kernel] <= self.limit
 
     def __enter__(self):
         from abyss_tpu_torch.dbg import extend as ext
@@ -784,17 +824,19 @@ class WalkCalls(Patches):
 
         def recording_walk(solid, buf, length, f, r, status, seed_canon,
                            has_prev, k, max_steps):
-            st = ext.ExtendState(buf.clone(), length.clone(), f.clone(),
-                                 r.clone(), status.clone(),
-                                 seed_canon.clone(), has_prev.clone())
-            self.walks.append((solid, st, k, max_steps))
+            if self._keep("walk"):
+                st = ext.ExtendState(buf.clone(), length.clone(), f.clone(),
+                                     r.clone(), status.clone(),
+                                     seed_canon.clone(), has_prev.clone())
+                self.walks.append((solid, st, k, max_steps))
             return walk(solid, buf, length, f, r, status, seed_canon,
                         has_prev, k, max_steps)
 
         def recording_branch(solid, roots, f0, r0, k, max_depth, width,
                              probes=None):
-            self.branches.append((solid, roots.clone(), f0.clone(),
-                                  r0.clone(), k, max_depth, width))
+            if self._keep("branch"):
+                self.branches.append((solid, roots.clone(), f0.clone(),
+                                      r0.clone(), k, max_depth, width))
             return branch(solid, roots, f0, r0, k, max_depth, width, probes)
 
         self.patch(kernels, "walk", recording_walk)
@@ -827,15 +869,17 @@ def _replayed(kernel: str, calls: list, filter_bytes: int) -> dict:
                             bound_ms=b) for c, b in zip(calls, bound)])
 
 
-def phase_replay_walks(rec: WalkCalls, launches: dict) -> tuple:
-    """Every walk and look-ahead launch a run made (WalkCalls), replayed
-    on its recorded inputs: each bit for bit against its plain version,
-    timed (median of 5 kernel runs; the plain look-ahead's median of 3,
-    the plain walk's checking run, a second or more each) and bounded.
-    Returns the walk and look-ahead rows."""
+def phase_replay_walks(rec: WalkCalls, launches: dict,
+                       variant: str = "_cascade") -> tuple:
+    """Every walk and look-ahead launch a run made (WalkCalls), or the
+    first rec.limit of each, replayed on its recorded inputs: each bit
+    for bit against its plain version, timed (median of 5 kernel runs;
+    the plain look-ahead's median of 3, the plain walk's checking run, a
+    second or more each) and bounded.  Returns the walk and look-ahead
+    rows of the kernels' `variant`."""
     from abyss_tpu_torch.dbg import extend as ext
-    check(len(rec.walks) == launches["walk_cascade"] and
-          len(rec.branches) == launches["branch_cascade"],
+    check(rec.seen["walk"] == launches["walk" + variant] and
+          rec.seen["branch"] == launches["branch" + variant],
           "replay: the recorded walk and look-ahead launches are not the "
           "run's")
     walks, branches = [], []
@@ -855,12 +899,15 @@ def phase_replay_walks(rec: WalkCalls, launches: dict) -> tuple:
     check(sum(c["probes"] for c in branches) > 0,
           "replay: the recorded look-aheads probed nothing")
     fb = _filter_bytes(rec.walks[0][0])
-    walk = _replayed("walk_cascade", walks, fb)
+    walk = _replayed("walk" + variant, walks, fb)
     walk["outcomes"] = {}
     for c in walks:
         for name, n in c["outcomes"].items():
             walk["outcomes"][name] = walk["outcomes"].get(name, 0) + n
-    return walk, _replayed("branch_cascade", branches, fb)
+    branch = _replayed("branch" + variant, branches, fb)
+    for row, kernel in ((walk, "walk"), (branch, "branch")):
+        row["path_launches"] = rec.seen[kernel]
+    return walk, branch
 
 
 class Spans(Patches):
@@ -1032,24 +1079,10 @@ def _hold_to_genome(run: dict, genome: str, phase: str, params,
                     n_pairs: int, read_len: int) -> dict:
     """The run's row: times, contig statistics against the genome, the
     FASTA's sha256 and the launches; fails on a contig check."""
-    from abyss_tpu_torch.core import alphabet
-    from abyss_tpu_torch.io import fastx
     fasta, timings = run["fasta"], run["timings"]
-    seqs = [r.seq for r in fastx.read_fastx(io.StringIO(fasta))]
-    check(len(seqs) > 0, f"{phase}: assembled no contig")
-    genome_bp = len(genome)
-    rc = alphabet.revcomp(genome)
-    long_ = [s for s in seqs if len(s) >= 500]
-    strict = sum(1 for s in long_ if s not in genome and s not in rc)
-    # stage 1 may end a contig in a k-mer that holds a read error (the
-    # JAX package writes the same contigs): hold the rest to the genome
-    k = params.k
-    wrong = sum(1 for s in long_
-                if s[k:-k] not in genome and s[k:-k] not in rc)
-    cover = sum(len(s) for s in long_) / genome_bp
-    lengths = [len(s) for s in seqs]
+    stats = _contig_stats(fasta, genome, phase, params.k)
     kmers = int(n_pairs * 2 * (read_len - params.k + 1))
-    row = dict(phase=phase, genome_bp=genome_bp, pairs=n_pairs,
+    row = dict(phase=phase, genome_bp=len(genome), pairs=n_pairs,
                read_len=read_len, k=params.k,
                filter_mode=params.filter_mode,
                bloom_bytes=params.bloom_bytes,
@@ -1059,14 +1092,34 @@ def _hold_to_genome(run: dict, genome: str, phase: str, params,
                pass1_kmers_per_s=kmers / timings["pass1_s"],
                pass2_s=timings["pass2_s"],
                pass2_split_s=run["spans"].seconds,
-               pass2_calls=run["spans"].calls,
-               contigs=len(seqs), total_bases=sum(lengths),
-               n50=_n50(lengths), max_contig=max(lengths),
-               contigs_500=len(long_), cover_500=cover,
-               not_substring_500=strict, wrong_500_inside_ends=wrong,
-               fasta_sha256=hashlib.sha256(fasta.encode()).hexdigest(),
+               pass2_calls=run["spans"].calls, **stats,
                peak_mem_bytes=run["peak"], launches=run["launches"])
     return row
+
+
+def _contig_stats(fasta: str, genome: str, phase: str, k: int) -> dict:
+    """Stage-1 contigs against the genome: count, bases, N50, the
+    contigs of 500 bp or more (their cover, those not genome substrings,
+    and those not substrings even inside their end k-mers) and the
+    FASTA's sha256; fails when there is no contig."""
+    from abyss_tpu_torch.core import alphabet
+    from abyss_tpu_torch.io import fastx
+    seqs = [r.seq for r in fastx.read_fastx(io.StringIO(fasta))]
+    check(len(seqs) > 0, f"{phase}: assembled no contig")
+    rc = alphabet.revcomp(genome)
+    long_ = [s for s in seqs if len(s) >= 500]
+    strict = sum(1 for s in long_ if s not in genome and s not in rc)
+    # stage 1 may end a contig in a k-mer that holds a read error (the
+    # JAX package writes the same contigs): hold the rest to the genome
+    wrong = sum(1 for s in long_
+                if s[k:-k] not in genome and s[k:-k] not in rc)
+    lengths = [len(s) for s in seqs]
+    return dict(contigs=len(seqs), total_bases=sum(lengths),
+                n50=_n50(lengths), max_contig=max(lengths),
+                contigs_500=len(long_),
+                cover_500=sum(len(s) for s in long_) / len(genome),
+                not_substring_500=strict, wrong_500_inside_ends=wrong,
+                fasta_sha256=hashlib.sha256(fasta.encode()).hexdigest())
 
 
 def _check_contigs(row: dict) -> None:
@@ -2851,6 +2904,342 @@ def phase_tools(tmp: str, paths, genome: str) -> tuple:
     return row, replay
 
 
+# ---------------------------------------------------------------------------
+# multi-device stage 1 (pe np= / nh=) on meshes of this one card
+
+# pe np= / nh= configurations run card against CPU on the parity reads:
+# (name, engine, np, nh, k) through pe.stage_unitigs_1 on an explicit
+# mesh of np x nh copies of one device
+MESH_PARITY_CONFIGS = (("exact_k31_np4", "exact", 4, 1, 31),
+                       ("exact_k64_np4", "exact", 4, 1, 64),
+                       ("exact_np3", "exact", 3, 1, 31),
+                       ("exact_2x2", "exact", 2, 2, 31),
+                       ("bloom_np2", "bloom", 2, 1, 31),
+                       ("bloom_np4", "bloom", 4, 1, 31))
+MESH_EXACT_NP = 4                 # the mesh_exact table's shards
+# the bloom engine's filter in mesh_parity (the parity phase's 4 MiB)
+# and in mesh_bloom (2^30 counters, as the tool and logcounter phases'):
+# pe's default 64 MiB (2^26 counters) holds the 4.6 Mbp reads' ~25 M
+# distinct k-mers so densely that false positives join unrelated
+# sequence (178 contigs of 500 bp or more off the genome at np = 2, in
+# the first chip run of this phase)
+MESH_PARITY_BLOOM_BYTES = 1 << 22
+MESH_BLOOM_BYTES = 1 << 30
+# mesh_parity's batches: the parity phase's read length, 4,096 reads a
+# batch (pe's 16,384 would pad the 6,000 reads into one batch of
+# mostly empty rows, which the CPU's plain walks pay for)
+MESH_PARITY_BATCH = (4096, 128)
+MESH_REPLAY = 3                   # walk / look-ahead launches replayed
+MESH_LOAD_CAPTURE = 9             # the load step's scatter-max replayed
+
+
+def _mesh_params(name: str, paths, outdir: str, device: str, engine: str,
+                 np_: int, nh: int = 1, k: int = 31, bloom_bytes=None,
+                 batch=None):
+    params = _pe_params(name, paths, outdir, device)
+    params.engine, params.np_devices, params.n_hosts, params.k = \
+        engine, np_, nh, k
+    if bloom_bytes is not None:
+        params.bloom_bytes = bloom_bytes
+    if batch is not None:
+        params.batch_size, params.max_read_len = batch
+    os.makedirs(outdir)
+    return params
+
+
+def _mesh_devices() -> list:
+    """The device the full-size mesh phases repeat: cuda:0 (one card
+    stands for the mesh)."""
+    import torch
+    return [torch.device("cuda", 0)]
+
+
+def phase_mesh_parity(tmp: str) -> dict:
+    """pe's stage 1 over np x nh devices (pe.stage_unitigs_1 with an
+    explicit mesh, as pe calls it) on the parity phase's reads, on a
+    mesh of copies of the card and of the CPU: the sharded exact engine
+    at k = 31 and 64, the non-power-of-two count (np = 3), the 2 x 2
+    host mesh and the bloom engine at np = 2 and 4 (a 4 MiB filter),
+    in batches of 4,096 reads; name-1.fa byte-identical, with each card
+    run's kernel launches.  Where the
+    machine has two cards or more, the np = 4 configurations run again on
+    a mesh of distinct cards (np = 2 of them, each twice)."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.pipeline import pe
+    paths = [os.path.join(tmp, "p1.fq"), os.path.join(tmp, "p2.fq")]
+    row = dict(phase="mesh_parity", mesh_kind="copies of cuda:0",
+               cards=torch.cuda.device_count(), runs={})
+    for name, engine, np_, nh, k in MESH_PARITY_CONFIGS:
+        fa, times = {}, {}
+        for dev in (torch.device("cuda", 0), torch.device("cpu")):
+            params = _mesh_params("mp", paths, os.path.join(
+                tmp, f"mesh_parity_{name}_{dev.type}"), dev.type, engine,
+                np_, nh, k, MESH_PARITY_BLOOM_BYTES, MESH_PARITY_BATCH)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pe.stage_unitigs_1(params, devices=[dev] * (np_ * nh))
+            times[dev.type] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                launches = {n: c for n, c in kernels.launches.items() if c}
+            with open(params.path("1.fa"), "rb") as f:
+                fa[dev.type] = f.read()
+        check(fa["cuda"] == fa["cpu"], f"mesh parity {name}: card and CPU "
+                                       "name-1.fa differ")
+        check(fa["cuda"].count(b">") > 0, f"mesh parity {name}: no contig")
+        row["runs"][name] = dict(contigs=fa["cuda"].count(b">"),
+                                 gpu_s=times["cuda"], cpu_s=times["cpu"],
+                                 launches=launches)
+    for name in ("bloom_np4",):
+        want = "walk_sharded"
+        check(row["runs"][name]["launches"].get(want, 0) > 0,
+              f"mesh parity {name}: {want} was not launched")
+    if torch.cuda.device_count() >= 2:
+        row["mesh_kind"] += "; distinct cards"
+        two = [torch.device("cuda", 0), torch.device("cuda", 1)] * 2
+        for name, engine, np_, nh, k in MESH_PARITY_CONFIGS:
+            if np_ * nh != 4:
+                continue
+            params = _mesh_params("mp", paths, os.path.join(
+                tmp, f"mesh_parity_{name}_cards"), "cuda", engine, np_, nh,
+                k, MESH_PARITY_BLOOM_BYTES, MESH_PARITY_BATCH)
+            pe.stage_unitigs_1(params, devices=two)
+            with open(params.path("1.fa"), "rb") as f:
+                cards = f.read()
+            with open(os.path.join(tmp, f"mesh_parity_{name}_cpu",
+                                   "mp-1.fa"), "rb") as f:
+                check(cards == f.read(), f"mesh parity {name}: distinct "
+                                         "cards and CPU differ")
+            row["runs"][name]["distinct_cards"] = True
+    return row
+
+
+def _fasta_records(path: str) -> list:
+    """(sequence, coverage) of each record of a stage-1 FASTA."""
+    from abyss_tpu_torch.io import fastx
+    return [(r.seq, int(r.comment.split()[1])) for r in
+            fastx.read_fastx(path)]
+
+
+class MeshCapture(Patches):
+    """During a sharded exact run: its phase spans (assemble_sharded
+    given a `timings` dict, each phase ended by a device sync), its
+    table, and the routing buckets that overflowed (each a retry with a
+    larger capacity, counted per shard)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.tables: list = []
+        self.overflows: list = []
+        super().__init__()
+
+    def __enter__(self):
+        from abyss_tpu_torch.parallel import sharded_table as tst
+        assemble, bucketize = tst.assemble_sharded, tst._bucketize
+
+        def assemble_sharded(*a, **kw):
+            kw["timings"] = self.seconds
+            out = assemble(*a, **kw)
+            self.tables.append(out[1])
+            return out
+
+        def recording_bucketize(*a, **kw):
+            out = bucketize(*a, **kw)
+            self.overflows.append(out[1])
+            return out
+
+        self.patch(tst, "assemble_sharded", assemble_sharded)
+        self.patch(tst, "_bucketize", recording_bucketize)
+        return self
+
+
+def phase_mesh_exact(tmp: str, paths, genome: str) -> dict:
+    """pe's stage 1 with engine=exact and np = 4 on a mesh of four copies
+    of the card (the sharded table, every phase on the mesh) with pe's
+    stage-1 arguments (k = 31, kc 2, e/E/c from the coverage model, tips
+    of k, bubbles of 2k + 1 k-mers) on the 4.6 Mbp reads, launch counts
+    set to 0 just before and read just after: its contigs, with their
+    coverage, must be the exact_pe phase's ex-1.fa as a set; each
+    shard's real rows fewer than the table's; phase spans, overflow
+    retries, peak memory."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.parallel import sharded_table as tst
+    from abyss_tpu_torch.pipeline import pe
+    params = _mesh_params("mx", paths, os.path.join(tmp, "mesh_exact"),
+                          "cuda", "exact", MESH_EXACT_NP)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with MeshCapture() as cap:
+            pe.stage_unitigs_1(params,
+                               devices=_mesh_devices() * MESH_EXACT_NP)
+    finally:
+        launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(cap.tables) == 1, "mesh_exact: pe did not run the sharded "
+                                "engine once")
+    t = cap.tables[0]
+    rows = [int((keys != tst.SENTINEL).sum()) for keys in t.keys]
+    alive = [int(a.sum()) for a in t.alive]
+    overflow = sum(1 for o in cap.overflows if int(o) > 0)
+    got = _fasta_records(params.path("1.fa"))
+    want = _fasta_records(os.path.join(tmp, "exact_pe", "ex-1.fa"))
+    with open(params.path("1.fa")) as f:
+        stats = _contig_stats(f.read(), genome, "mesh_exact", params.k)
+    row = dict(phase="mesh_exact", mesh=f"{MESH_EXACT_NP} x cuda:0",
+               k=params.k, wall_s=wall, phase_s=dict(cap.seconds),
+               shard_rows=rows, shard_size=t.shard_size,
+               table_rows=sum(rows), alive_rows=alive,
+               bucketizations=len(cap.overflows), overflow_retries=overflow,
+               same_contigs_as_exact_pe=sorted(got) == sorted(want),
+               exact_pe_contigs=len(want), **stats,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    check(row["same_contigs_as_exact_pe"], "mesh_exact: contigs differ "
+                                           "from exact_pe's ex-1.fa")
+    check(all(r < sum(rows) for r in rows),
+          "mesh_exact: a shard holds the whole table")
+    return row
+
+
+def phase_mesh_bloom(tmp: str, paths, genome: str) -> tuple:
+    """pe's bloom stage 1 with B = 1 GiB (2^30 counters,
+    MESH_BLOOM_BYTES) on the 4.6 Mbp reads at np = 2 (a 2 x 1 mesh of
+    copies of the card, the filter replicated, pass 2 through
+    walk_bloom) and np = 4 (2 x 2, the filter sharded, pass 2 through
+    walk_sharded), launch counts set to 0 just
+    before and read just after each: the two runs split the data alike,
+    so the sharded counters, concatenated, must equal the replicated
+    ones, and the FASTA files hold the same sequences (byte equality
+    reported); both held to the main phase's contig gates.  Returns the
+    row, the np = 4 run's recorded walk and look-ahead launches and one
+    of its load-step scatter-max calls."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.parallel import distributed as tdist
+    from abyss_tpu_torch.pipeline import pe
+    row = dict(phase="mesh_bloom", runs={})
+    filters, fastas = {}, {}
+    rec = WalkCalls(limit=MESH_REPLAY)
+    capture: dict = {}
+    scatter = tdist.scatter_max_u8
+
+    def recording(counters, idx, val):
+        n = capture.setdefault("calls", 0)
+        if n == MESH_LOAD_CAPTURE:
+            capture.update(before=counters.clone(), idx=idx.clone(),
+                           val=val.clone())
+        out = scatter(counters, idx, val)
+        if n == MESH_LOAD_CAPTURE:
+            capture["after"] = counters.clone()
+        capture["calls"] = n + 1
+        return out
+
+    for np_ in (2, 4):
+        params = _mesh_params(f"mb{np_}", paths, os.path.join(
+            tmp, f"mesh_bloom_{np_}"), "cuda", "bloom", np_,
+            bloom_bytes=MESH_BLOOM_BYTES)
+        patches = Patches()
+        build = pe.bloom_mesh_filter
+        built: dict = {}
+
+        def capture_filter(p, devices):
+            t0 = time.perf_counter()
+            filt, prm = build(p, devices)
+            torch.cuda.synchronize()
+            built.update(filter=filt, pass1_s=time.perf_counter() - t0)
+            return filt, prm
+
+        patches.patch(pe, "bloom_mesh_filter", capture_filter)
+        if np_ == 4:
+            patches.patch(tdist, "scatter_max_u8", recording)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            if np_ == 4:
+                with rec:
+                    pe.stage_unitigs_1(params, devices=_mesh_devices() * np_)
+            else:
+                pe.stage_unitigs_1(params, devices=_mesh_devices() * np_)
+        finally:
+            launches = dict(kernels.launches)
+            patches.restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(params.path("1.fa")) as f:
+            fastas[np_] = f.read()
+        stats = _contig_stats(fastas[np_], genome, f"mesh_bloom np={np_}",
+                              params.k)
+        filt = filters[np_] = built["filter"]
+        sharded = isinstance(filt, tdist.ShardedCountingFilter)
+        check(sharded == (np_ == 4), f"mesh_bloom np={np_}: the filter is "
+                                     f"{type(filt).__name__}")
+        variant = "_sharded" if sharded else "_bloom"
+        for name in ("nthash", "scatter_max", "walk" + variant,
+                     "branch" + variant):
+            check(launches[name] > 0, f"mesh_bloom np={np_}: kernel {name} "
+                                      "was not launched")
+        run = dict(mesh=f"{np_ // 2 if np_ >= 4 else np_} data x "
+                        f"{2 if np_ >= 4 else 1} shard of cuda:0",
+                   wall_s=wall, pass1_s=built["pass1_s"],
+                   pass2_s=wall - built["pass1_s"],
+                   counters=filt.size, **stats,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches=launches)
+        row["runs"][f"np{np_}"] = run
+        _check_contigs(dict(run, phase=f"mesh_bloom np={np_}"))
+    flat = torch.cat(filters[4].shards)
+    row["sharded_counters_equal"] = bool(torch.equal(
+        flat, filters[2].counters[:filters[2].size]))
+    seqs = {n: sorted(l for l in fa.splitlines() if not l.startswith(">"))
+            for n, fa in fastas.items()}
+    row["same_sequences"] = seqs[2] == seqs[4]
+    row["fasta_byte_equal"] = fastas[2] == fastas[4]
+    emit(row)
+    check(row["sharded_counters_equal"], "mesh_bloom: the sharded counters "
+                                         "differ from the replicated ones")
+    check(row["same_sequences"], "mesh_bloom: np=2 and np=4 assemble "
+                                 "different sequences")
+    check("after" in capture, f"mesh_bloom: fewer than "
+                              f"{MESH_LOAD_CAPTURE + 1} load-step scatters")
+    return row, rec, capture, filters[2]
+
+
+def sharded_vs_bloom(rec: WalkCalls, cbf, walk: dict, branch: dict) -> None:
+    """The replayed walk_sharded and branch_sharded launches timed again
+    through walk_bloom and branch_bloom on the replicated filter of the
+    same counters (mesh_bloom checks they are equal): the cost of
+    reading the counters through their shards, on the same inputs.
+    Adds `bloom_ms` (the mean over the launches) to each row."""
+    import torch
+    from abyss_tpu_torch.ops import kernels
+    walks = []
+    for _, st0, k, steps in rec.walks:
+        work = st0._replace(**{n: getattr(st0, n).clone()
+                               for n in WALK_FIELDS})
+
+        def reset(work=work, st0=st0):
+            for n in WALK_FIELDS:
+                getattr(work, n).copy_(getattr(st0, n))
+
+        walks.append(median_ms(lambda work=work, k=k, steps=steps:
+                               kernels.walk(cbf, work.buf, work.length,
+                                            work.f, work.r, work.status,
+                                            work.seed_canon, work.has_prev,
+                                            k, steps), 5, flush=reset))
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=cbf.device)
+    branches = [median_ms(lambda a=a: kernels.branch(cbf, *a[1:]), 5,
+                          flush=lambda: flush_buf.fill_(1))
+                for a in rec.branches]
+    walk["bloom_ms"] = sum(walks) / len(walks)
+    branch["bloom_ms"] = sum(branches) / len(branches)
+
+
 # the phases `python3 chip_smoke.py NAME ...` runs alone, each with the
 # phases it needs run first ("main" includes the ntHash shape timings;
 # "walk" the walk and look-ahead rows of the main path; "bloom" the
@@ -2861,10 +3250,13 @@ PHASES = {"kernel": (), "parity": (), "main": ("kernel",),
           "pe": (), "exact_parity": ("parity",), "exact_pe": (), "wide": (),
           "paired": (), "konnector": (), "konnector_cascade": (),
           "sealer": ("pe",), "paired_parity": ("pe_parity",),
-          "tools_parity": ("parity",), "tools": ()}
+          "tools_parity": ("parity",), "tools": (),
+          "mesh_parity": ("parity",), "mesh_exact": ("exact_pe",),
+          "mesh_bloom": ()}
 # the phases that read the 4.6 Mbp fixture (make_fixture)
 FIXTURE_PHASES = {"main", "bloom", "pe", "exact_pe", "wide", "paired",
-                  "konnector", "konnector_cascade", "sealer", "tools"}
+                  "konnector", "konnector_cascade", "sealer", "tools",
+                  "mesh_exact", "mesh_bloom"}
 
 
 def phases_to_run(names) -> list:
@@ -2993,6 +3385,25 @@ def main(argv=None) -> int:
             tools_row, plc_replay = phase_tools(tmp, paths, genome)
             emit(plc_replay)
             torch.cuda.empty_cache()
+        if "mesh_parity" in run:
+            emit(phase_mesh_parity(tmp))
+        if "mesh_exact" in run:
+            mesh_exact = phase_mesh_exact(tmp, paths, genome)
+            torch.cuda.empty_cache()
+        if "mesh_bloom" in run:
+            mesh_row, mesh_calls, load_capture, mesh_cbf = phase_mesh_bloom(
+                tmp, paths, genome)
+            walk_sharded, branch_sharded = phase_replay_walks(
+                mesh_calls, mesh_row["runs"]["np4"]["launches"], "_sharded")
+            sharded_vs_bloom(mesh_calls, mesh_cbf, walk_sharded,
+                             branch_sharded)
+            emit(walk_sharded)
+            emit(branch_sharded)
+            load_scatter = scatter_replay(load_capture)
+            emit(dict(phase="kernel", kernel="scatter_max_mesh_load",
+                      **load_scatter, call=MESH_LOAD_CAPTURE))
+            mesh_calls = load_capture = mesh_cbf = None
+            torch.cuda.empty_cache()
     except SmokeError as e:
         log(f"FAILED: {e}")
         return 1
@@ -3026,6 +3437,17 @@ def main(argv=None) -> int:
                 launches_paired=paired_row["launches"]["nthash"],
                 launches_konnector=konn_row["launches"]["nthash"])
     scatter.update(launches_konnector=casc_row["launches"]["scatter_max"])
+    # both kernels on the mesh bloom path (np = 4: the load step's ntHash
+    # and scatter-max once per shard and batch); the scatter-max also at
+    # the load step's shape (one call replayed)
+    mesh_launches = mesh_row["runs"]["np4"]["launches"]
+    kern.update(launches_mesh_bloom=mesh_launches["nthash"],
+                launches_mesh_exact=mesh_exact["launches"]["nthash"])
+    scatter.update(launches_mesh_bloom=mesh_launches["scatter_max"],
+                   mesh_load={n: load_scatter[n] for n in (
+                       "counters", "updates", "max_abs_err", "ms",
+                       "plain_ms", "library_ms", "bytes", "bound_ms",
+                       "bound_by")})
     # both kernels on the logcounter path; the scatter-max also at its PLC
     # shape (one logcounter batch replayed)
     logcounter_launches = tools_row["logcounter"]["launches"]
@@ -3045,7 +3467,9 @@ def main(argv=None) -> int:
                                "gap_ms_paired_run", "launches_exact_pe",
                                "launches_wide", "launches_paired",
                                "launches_konnector", "launches_logcounter",
-                               "plc")
+                               "launches_mesh_bloom", "launches_mesh_exact",
+                               "plc", "mesh_load", "path_launches",
+                               "bloom_ms")
            if n in rec},
         **({"launches_pe": pe_row["launches"][name]}
            if name in ("nthash", "walk", "branch") else {}))
@@ -3061,7 +3485,11 @@ def main(argv=None) -> int:
              branch_bloom),
             ("walk_cascade", walk_cu, fast_extend, casc_row, walk_cascade),
             ("branch_cascade", walk_cu, branch_depths, casc_row,
-             branch_cascade))]})
+             branch_cascade),
+            ("walk_sharded", walk_cu, fast_extend, mesh_row["runs"]["np4"],
+             walk_sharded),
+            ("branch_sharded", walk_cu, branch_depths,
+             mesh_row["runs"]["np4"], branch_sharded))]})
     emit({"phase": "total", "wall_s": time.perf_counter() - START})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

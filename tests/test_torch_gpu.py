@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from abyss_tpu_torch import sim
+from abyss_tpu_torch import convert, sim
 from abyss_tpu_torch.core import alphabet
 from abyss_tpu_torch.dbg import extend as ext
 from abyss_tpu_torch.ops import bloom as tbloom
@@ -24,6 +24,8 @@ from abyss_tpu_torch.ops import kernels
 from abyss_tpu_torch.ops import nthash
 from abyss_tpu_torch.ops import scatter_max as tsm
 from abyss_tpu_torch.ops import sorted_filter as tsf
+from abyss_tpu_torch.parallel import distributed as tdist
+from abyss_tpu_torch.parallel import mesh as tm
 from tests import test_torch_kernel_host as host
 
 # the suite runs in several worker processes at once: one intra-op
@@ -110,6 +112,14 @@ def walk_filter(seqs, k, min_cov, bloom, cuda):
                 f.insert(*nthash.canonical_hashes(
                     torch.from_numpy(alphabet.encode(s)[None]).to(cuda), k))
         return f, "_cascade"
+    if bloom == "sharded":
+        # the counting filter's counters split into 4 shards of a
+        # (1 x 4) mesh of this card (parallel/distributed)
+        f, _ = walk_filter(seqs, k, min_cov, True, cuda)
+        mesh = tm.make_mesh(1, 4, [cuda] * 4)
+        return convert.sharded_filter_from_numpy(
+            mesh, f.counters[:f.size].cpu().numpy(), k, f.threshold,
+            f.num_hashes), "_sharded"
     if bloom:
         f = tbloom.CountingBloomFilter.create(1 << 17, k, 3, min_cov, cuda)
         add = f.insert
@@ -137,6 +147,11 @@ def test_walk_bloom_kernel_matches_plain(cuda, max_steps):
 @pytest.mark.parametrize("max_steps", [1, 50, 2000])
 def test_walk_cascade_kernel_matches_plain(cuda, max_steps):
     check_walk(cuda, max_steps, bloom="cascade")
+
+
+@pytest.mark.parametrize("max_steps", [1, 50, 2000])
+def test_walk_sharded_kernel_matches_plain(cuda, max_steps):
+    check_walk(cuda, max_steps, bloom="sharded")
 
 
 @pytest.mark.parametrize("bloom", [False, True], ids=["table", "bloom"])
@@ -200,6 +215,11 @@ def test_branch_bloom_kernel_matches_plain(cuda, max_depth, width):
 @pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
 def test_branch_cascade_kernel_matches_plain(cuda, max_depth, width):
     check_branch(cuda, max_depth, width, bloom="cascade")
+
+
+@pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
+def test_branch_sharded_kernel_matches_plain(cuda, max_depth, width):
+    check_branch(cuda, max_depth, width, bloom="sharded")
 
 
 @pytest.mark.parametrize("bloom", [False, True, "cascade"],
@@ -638,3 +658,71 @@ def test_device_suffix_array_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(sa, fmindex._suffix_array_device(text,
                                                                    "cpu"))
     assert np.array_equal(np.sort(sa), np.arange(len(text)))
+
+
+def test_sharded_filter_across_cards(cuda):
+    """Shards on two cards: the walk kernel launched on the first reads
+    the second's shard by peer access (or raises where it cannot), and
+    agrees with the plain walk."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    k = 25
+    genome = sim.random_genome(3000, seed=9)
+    pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
+                                   error_rate=0.01, seed=10)
+    seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
+    f, _ = walk_filter(seqs, k, 2, True, cuda)
+    mesh = tm.make_mesh(1, 2, [torch.device("cuda", 0),
+                               torch.device("cuda", 1)])
+    wf = convert.sharded_filter_from_numpy(
+        mesh, f.counters[:f.size].cpu().numpy(), k, f.threshold,
+        f.num_hashes)
+    seeds = np.stack([alphabet.encode(s[:k]) for s in seqs[:200]])
+    st0 = ext.init_state(seeds, k + 300, k, torch.device("cuda", 0))
+    fields = ("buf", "length", "f", "r", "status", "has_prev")
+    a = st0._replace(**{n: getattr(st0, n).clone() for n in fields})
+    b = st0._replace(**{n: getattr(st0, n).clone() for n in fields})
+    if not torch.cuda.can_device_access_peer(0, 1):
+        with pytest.raises(RuntimeError, match="cannot read the shard"):
+            ext.fast_extend(wf, a, k, 300)
+        return
+    a = ext.fast_extend(wf, a, k, 300)
+    b = ext.fast_extend_plain(wf, b, k, 300)
+    for n in fields:
+        assert torch.equal(getattr(a, n), getattr(b, n)), n
+
+
+@pytest.mark.parametrize("k", [25, 40])
+def test_mesh_engines_on_card_match_cpu(cuda, k):
+    """On a mesh of four copies of the card and of the CPU: the sharded
+    exact engine's contigs, the mesh counting filter's counters (the
+    load step's ntHash and scatter-max kernels), and the sharded
+    filter's probes agree."""
+    from abyss_tpu_torch.parallel import sharded_table as tst
+    genome = sim.genome_with_repeats(6000, seed=12, n_repeats=2,
+                                     repeat_len=200)
+    pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
+                                   error_rate=0.003, seed=13)
+    seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
+    codes = np.full((len(seqs), 100), 4, np.uint8)
+    for i, s in enumerate(seqs):
+        codes[i, :len(s)] = alphabet.encode(s)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        devs = [dev] * 4
+        contigs, _ = tst.assemble_sharded(tm.make_mesh(4, 1, devs), [codes],
+                                          k, erode_cov=None,
+                                          erode_strand=None, auto_params=True)
+        launched = dict(kernels.launches)
+        f = tdist.distributed_filter_build(tm.make_mesh(2, 2, devs), [codes],
+                                           k, size=1 << 16, sharded=True)
+        if dev.type == "cuda":
+            assert kernels.launches["scatter_max"] == \
+                launched["scatter_max"] + 4
+        canon, valid = nthash.canonical_hashes(
+            torch.from_numpy(codes).to(dev), k)
+        out[dev.type] = (contigs, torch.cat(f.shards).cpu(),
+                         f.count(canon, valid).cpu())
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 0
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2])

@@ -224,13 +224,18 @@ UNPORTED = {"np": dict(np_devices=2), "nh": dict(n_hosts=2)}
 
 @pytest.mark.parametrize("branch", list(UNPORTED))
 def test_unported_branch_raises(tmp_path, branch):
+    """The np=/nh= branches that raised NotImplementedError before the
+    port had parallel/ now run: stage 1 writes abyss_tpu's bytes (np=2
+    builds the filter on a 2 x 1 mesh; the bloom engine ignores nh)."""
     reads = [str(tmp_path / "r.fq")]
     with open(reads[0], "w") as f:
         f.write("@r/1\n" + "ACGT" * 25 + "\n+\n" + "I" * 100 + "\n")
-    p = params(tpe, tmp_path / "out", reads, **UNPORTED[branch])
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tpe.run(p)
-    assert not os.path.exists(tmp_path / "out")
+    for mod in (jpe, tpe):
+        p = params(mod, tmp_path / mod.__name__, reads, **UNPORTED[branch])
+        os.makedirs(p.outdir)
+        mod.stage_unitigs_1(p)
+    assert read(tmp_path / tpe.__name__ / f"{NAME}-1.fa") == \
+        read(tmp_path / jpe.__name__ / f"{NAME}-1.fa")
 
 
 # the exact engine runs no RResolver (bin/abyss-pe's `ifdef B`)

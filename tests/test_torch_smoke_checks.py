@@ -99,7 +99,9 @@ def test_sealer_gate_excuses_only_a_short_overlap(case, excused):
     (["walk"], ["kernel", "main", "walk"]),
     (["paired_parity", "konnector"],
      ["parity", "pe_parity", "konnector", "paired_parity"]),
-    (["tools", "tools_parity"], ["parity", "tools_parity", "tools"])])
+    (["tools", "tools_parity"], ["parity", "tools_parity", "tools"]),
+    (["mesh_exact", "mesh_bloom"], ["exact_pe", "mesh_exact", "mesh_bloom"]),
+    (["mesh_parity"], ["parity", "mesh_parity"])])
 def test_phase_selection_runs_prerequisites(names, want):
     assert chip_smoke.phases_to_run(names) == want
 
