@@ -28,6 +28,7 @@ from ..core import alphabet
 from ..dbg.hash_dbg import _trim_pad_columns
 from ..ops import nthash
 from ..ops.sort_join import join_rows
+from ..utils import trace
 
 DUP = 4            # max duplicate index hits examined per seed
 DIAG_OFF = 1 << 20  # diagonal offset so keys stay positive
@@ -297,13 +298,23 @@ class KmerAligner:
                     ids: list[str]) -> list[Alignment | None]:
         """Align a padded [B, L] read batch; one best alignment per read
         (None if unmapped/ambiguous).  Only the first len(ids) results
-        are returned."""
-        codes = _trim_pad_columns(np.asarray(codes), self.k)
-        codes_t = torch.from_numpy(
-            np.ascontiguousarray(codes, np.uint8)).to(self.index.device)
-        (best_key, count, second, qstart, qend, second_key, qstart2,
-         qend2) = (t.cpu().numpy() for t in _vote_kernel(
-             self.index, codes_t, self.k))
+        are returned.  The vote (upload, `_vote_kernel`, copy back) is
+        the span `align.vote`, the per-read host loop `align.chain`."""
+        with trace.span("align.vote", device=True):
+            codes = _trim_pad_columns(np.asarray(codes), self.k)
+            codes_t = torch.from_numpy(
+                np.ascontiguousarray(codes, np.uint8)).to(self.index.device)
+            (best_key, count, second, qstart, qend, second_key, qstart2,
+             qend2) = (t.cpu().numpy() for t in _vote_kernel(
+                 self.index, codes_t, self.k))
+        with trace.span("align.chain"):
+            return self._chain(ids, lengths, best_key, count, second,
+                               qstart, qend, second_key, qstart2, qend2)
+
+    def _chain(self, ids, lengths, best_key, count, second, qstart, qend,
+               second_key, qstart2, qend2) -> list[Alignment | None]:
+        """Each read's alignment from its vote: the seed chaining of an
+        indel across two diagonals, the CIGAR and the mapq."""
         out = []
         for i, qname in enumerate(ids):
             if count[i] < self.min_seeds or best_key[i] < 0:

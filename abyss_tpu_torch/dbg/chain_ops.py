@@ -41,6 +41,8 @@ ported: nothing in the JAX package calls it.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -326,6 +328,10 @@ class DeviceDBG:
     Uploads kmers/adjacency/counts once; `alive` lives on the device
     across erode/trim rounds and is synced back to the host table by
     the hash_dbg phase wrappers.  Adjacency is direction-major [8, N].
+    The table caches its view (hash_dbg._device_dbg), so the view holds
+    the table weakly: the pair is freed, device copies and all, as soon
+    as the table's last user drops it, not at the next cyclic garbage
+    collection.
     """
 
     def __init__(self, t):
@@ -333,7 +339,7 @@ class DeviceDBG:
             raise ValueError(f"{t.n} k-mer rows: oriented vertex ids "
                              f"2 * row + strand must fit in int32")
         dev = resolve_device(t.device)
-        self.t = t
+        self._table = weakref.ref(t)
         self.k = t.k
         self.n = t.n
         self.wide = t.wide
@@ -348,6 +354,10 @@ class DeviceDBG:
             self.firstb_d = torch.from_numpy(fb).to(dev)
             self.lastb_d = torch.from_numpy(lb).to(dev)
         self.sync_from_host()
+
+    @property
+    def t(self):
+        return self._table()
 
     def sync_from_host(self):
         self.alive_d = torch.from_numpy(

@@ -47,6 +47,7 @@ from ..ops import hash_probe as hp
 from ..ops import kernels, nthash
 from ..ops.bloom import CascadingBloomFilter, CountingBloomFilter
 from ..parallel.distributed import ShardedCountingFilter
+from ..utils import trace
 
 # path status codes (superset of PathExtensionResultCode, ExtendPath.h:47-57)
 ACTIVE = 0
@@ -215,13 +216,34 @@ def fast_extend(cbf, st: ExtendState, k: int,
     the plain loop of `_step`, run until no lane is ACTIVE or max_steps
     steps have run; the condition is tested after 1, 2, 4, ... CHECK_MAX
     steps (extra steps are no-ops on non-ACTIVE lanes).  Both update
-    st.buf in place."""
+    st.buf in place.
+
+    With tracing on it counts `walk.lanes` (lanes launched),
+    `walk.lane_steps` (the lanes' advances, plus the step that stopped
+    each lane that was ACTIVE when the step began) and `walk.bases`
+    (bases written)."""
+    counting = trace.enabled()
+    if counting:
+        length0, active0 = st.length.clone(), st.status == ACTIVE
     if st.buf.is_cuda:
         kernels.walk(_kernel_solid("fast_extend", cbf), st.buf, st.length,
                      st.f, st.r, st.status, st.seed_canon, st.has_prev, k,
                      max_steps)
-        return st
-    return fast_extend_plain(cbf, st, k, max_steps)
+    else:
+        st = fast_extend_plain(cbf, st, k, max_steps)
+    if counting:
+        _count_walk(st, length0, active0)
+    return st
+
+
+def _count_walk(st: ExtendState, length0: torch.Tensor,
+                active0: torch.Tensor) -> None:
+    """The walk counters of one launch from the lanes' state before it."""
+    bases = int((st.length - length0).sum())
+    stopped = int((active0 & (st.status != ACTIVE)).sum())
+    trace.count("walk.lanes", st.buf.shape[0])
+    trace.count("walk.lane_steps", bases + stopped)
+    trace.count("walk.bases", bases)
 
 
 def _kernel_solid(fn: str, cbf):
@@ -532,68 +554,73 @@ def extend_forward(cbf, seed_codes: np.ndarray, k: int, trim: int,
         st = fast_extend(cbf, st, k, cur_chunk)
         status = st.status.cpu().numpy()
         if ((status == NEED_B) | (status == NEED_F)).any():
-            st = _resolve(cbf, st, k, trim, width)
-            status = st.status.cpu().numpy()
+            with trace.span("walk.resolve", device=True):
+                st = _resolve(cbf, st, k, trim, width)
+                status = st.status.cpu().numpy()
         if (status == ACTIVE).any():
             continue
-        # all terminal for this chunk: stitch into the running contigs
-        buf = st.buf.cpu().numpy()
-        length = st.length.cpu().numpy()
-        if out_bufs is None:
-            out_bufs, out_len, out_status = \
-                buf[:P0].copy(), length[:P0].copy(), status[:P0].copy()
-        else:
-            skip = k + 1  # continuation chunks start with [prev_base + seed]
-            grow = buf.shape[1] - skip
-            new = np.full((P0, out_bufs.shape[1] + grow), alphabet.BAD,
-                          np.uint8)
-            new[:, :out_bufs.shape[1]] = out_bufs
-            for j in range(buf.shape[0]):
-                i = lane_map[j]
-                if i < 0 or out_status[i] != CHUNK_LIMIT:
-                    continue
-                n_ext = length[j] - skip  # bases beyond warm seed
-                if n_ext > 0:
-                    new[i, out_len[i]:out_len[i] + n_ext] = \
-                        buf[j, skip:length[j]]
-                    out_len[i] += n_ext
-                out_status[i] = status[j]
-            out_bufs = new
-        # exact cross-chunk cycle detection on paths still going: one
-        # joined hash call, truncating each at its first revisited vertex
-        going = np.nonzero(out_status == CHUNK_LIMIT)[0]
-        if len(going):
-            sep = np.full(1, alphabet.BAD, np.uint8)
-            joined = np.concatenate(
-                [x for i in going
-                 for x in (out_bufs[i, :out_len[i]], sep)])
-            _, _, canon, _ = nthash.kmer_hashes_padded(joined, k, dev)
-            canon = u64.to_numpy(canon)
-            pos = 0
-            for i in going:
-                L = int(out_len[i])
-                r = _first_revisit(canon[pos:pos + L - k + 1])
-                if r >= 0:
-                    out_status[i] = CYCLE
-                    out_len[i] = r + k - 1
-                pos += L + 1
-        if not (out_status == CHUNK_LIMIT).any() or \
-                out_bufs.shape[1] >= max_len:
-            break
-        # warm restart for the surviving lanes only, doubled budget
-        cur_chunk = min(cur_chunk * 2, chunk_max)
-        cont = np.nonzero(out_status == CHUNK_LIMIT)[0]
-        Pc = bucket_size(len(cont), lo=8)
-        lane_map = np.full(Pc, -1, np.int64)
-        lane_map[:len(cont)] = cont
-        seeds = np.zeros((Pc, k), np.uint8)
-        prevb = np.zeros(Pc, np.uint8)
-        for j, i in enumerate(cont):
-            L = out_len[i]
-            seeds[j] = out_bufs[i, L - k:L]
-            prevb[j] = out_bufs[i, L - k - 1] if L > k else 0
-        st = _inert_pad(init_state(seeds, k + 1 + cur_chunk, k, dev,
-                                   prev_base=prevb), len(cont))
+        # all terminal for this chunk: stitch into the running contigs,
+        # cut cycles across chunks and restart the lanes still going
+        with trace.span("walk.stitch", device=True):
+            buf = st.buf.cpu().numpy()
+            length = st.length.cpu().numpy()
+            if out_bufs is None:
+                out_bufs, out_len, out_status = (
+                    buf[:P0].copy(), length[:P0].copy(), status[:P0].copy())
+            else:
+                # continuation chunks start with [prev_base + seed]
+                skip = k + 1
+                grow = buf.shape[1] - skip
+                new = np.full((P0, out_bufs.shape[1] + grow), alphabet.BAD,
+                              np.uint8)
+                new[:, :out_bufs.shape[1]] = out_bufs
+                for j in range(buf.shape[0]):
+                    i = lane_map[j]
+                    if i < 0 or out_status[i] != CHUNK_LIMIT:
+                        continue
+                    n_ext = length[j] - skip  # bases beyond warm seed
+                    if n_ext > 0:
+                        new[i, out_len[i]:out_len[i] + n_ext] = \
+                            buf[j, skip:length[j]]
+                        out_len[i] += n_ext
+                    out_status[i] = status[j]
+                out_bufs = new
+            # exact cross-chunk cycle detection on paths still going: one
+            # joined hash call, truncating each at its first revisited
+            # vertex
+            going = np.nonzero(out_status == CHUNK_LIMIT)[0]
+            if len(going):
+                sep = np.full(1, alphabet.BAD, np.uint8)
+                joined = np.concatenate(
+                    [x for i in going
+                     for x in (out_bufs[i, :out_len[i]], sep)])
+                _, _, canon, _ = nthash.kmer_hashes_padded(joined, k, dev)
+                canon = u64.to_numpy(canon)
+                pos = 0
+                for i in going:
+                    L = int(out_len[i])
+                    r = _first_revisit(canon[pos:pos + L - k + 1])
+                    if r >= 0:
+                        out_status[i] = CYCLE
+                        out_len[i] = r + k - 1
+                    pos += L + 1
+            if not (out_status == CHUNK_LIMIT).any() or \
+                    out_bufs.shape[1] >= max_len:
+                break
+            # warm restart for the surviving lanes only, doubled budget
+            cur_chunk = min(cur_chunk * 2, chunk_max)
+            cont = np.nonzero(out_status == CHUNK_LIMIT)[0]
+            Pc = bucket_size(len(cont), lo=8)
+            lane_map = np.full(Pc, -1, np.int64)
+            lane_map[:len(cont)] = cont
+            seeds = np.zeros((Pc, k), np.uint8)
+            prevb = np.zeros(Pc, np.uint8)
+            for j, i in enumerate(cont):
+                L = out_len[i]
+                seeds[j] = out_bufs[i, L - k:L]
+                prevb[j] = out_bufs[i, L - k - 1] if L > k else 0
+            st = _inert_pad(init_state(seeds, k + 1 + cur_chunk, k, dev,
+                                       prev_base=prevb), len(cont))
     return out_bufs, out_len, out_status
 
 

@@ -28,7 +28,6 @@ first occurrence off the device.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +36,7 @@ import torch
 from .. import resolve_device, u64
 from ..core import alphabet
 from ..ops import nthash
+from ..utils import trace
 from . import chain_ops, hash_dbg
 from .hash_dbg import KmerTable
 
@@ -187,15 +187,15 @@ def _chain_trim_round(alive: np.ndarray, nxt: np.ndarray,
 
 def assemble_pairs(batches, k: int, K: int, kc: int = 2,
                    tip_len: int | None = None, device="cuda",
-                   info: dict | None = None) -> list[tuple[str, int]]:
+                   ) -> list[tuple[str, int]]:
     """Count pairs, build adjacency, trim tips (performTrim with the
     reference's default t = span), link unique successors, emit contigs
     (with 'N' for undetermined interior positions).  tip_len=0 disables
-    trimming.  k > 16 goes to the wide mode (assemble_pairs_wide, which
-    fills `info`)."""
+    trimming.  k > 16 goes to the wide mode (assemble_pairs_wide, whose
+    phases are spans)."""
     if k > 16:
         return assemble_pairs_wide(batches, k, K, kc=kc, tip_len=tip_len,
-                                   device=device, info=info)
+                                   device=device)
     t = count_pairs(batches, k, K, device=device)
     t.alive &= t.counts >= kc
     nbr = build_pair_adjacency(t, k)
@@ -355,61 +355,51 @@ def _pair_fill_batch(codes: torch.Tensor, k: int, K: int):
             fb.reshape(-1), rb.reshape(-1))
 
 
-def _marker(info: dict | None, dev: torch.device):
-    """mark(name) adds the seconds since the previous mark, ended by a
-    device synchronisation, to info[name] (nothing when info is None)."""
-    last = [time.perf_counter()]
-
-    def mark(name: str) -> None:
-        if info is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        info[name] = info.get(name, 0.0) + now - last[0]
-        last[0] = now
-
-    return mark
-
-
 def count_pairs_wide(batches, k: int, K: int, kc: int = 1,
-                     device="cuda", info: dict | None = None) -> PairTable:
+                     device="cuda") -> PairTable:
     """Count pair fingerprints, apply the kc filter, then fill the side
     arrays from each surviving fingerprint's first occurrence (the
     deferred fill: most distinct pairs are sub-threshold error pairs).
     Only each batch's `need` mask and its new rows' first occurrences
-    cross to the host.  `info`, if given, receives the seconds of
-    "count", "kc filter" and "fill" and the pair rows before and after
-    the kc filter ("rows", "rows_kc")."""
+    cross to the host.  The phases are the spans `paired.count`,
+    `paired.kc_filter` and `paired.fill`; the counters `paired.rows`
+    and `paired.rows_kc` hold the pair rows before and after the kc
+    filter."""
     from ..ops.sorted_filter import SortedKmerCounter
     dev = resolve_device(device)
-    mark = _marker(info, dev)
     batches = [np.ascontiguousarray(b, np.uint8) for b in batches]
-    ctr = SortedKmerCounter(k, threshold=1)
-    for codes in batches:
-        if codes.shape[-1] - K + 1 <= 0:
-            continue
-        ctr.add(_pair_canon_batch(hash_dbg._to_device(codes, dev), k, K))
-    keys, cnts = hash_dbg._finalized(ctr)
-    mark("count")
-    counts = np.minimum(cnts, hash_dbg.COVERAGE_MAX).astype(np.int32)
-    if info is not None:
-        info["rows"] = len(keys)
-    if kc > 1:
-        keep = counts >= kc
-        keys, counts = keys[keep], counts[keep]
-    N = len(keys)
-    if info is not None:
-        info["rows_kc"] = N
-    mark("kc filter")
+    with trace.span("paired.count", device=True):
+        ctr = SortedKmerCounter(k, threshold=1)
+        for codes in batches:
+            if codes.shape[-1] - K + 1 <= 0:
+                continue
+            ctr.add(_pair_canon_batch(hash_dbg._to_device(codes, dev), k,
+                                      K))
+        keys, cnts = hash_dbg._finalized(ctr)
+    with trace.span("paired.kc_filter", device=True):
+        counts = np.minimum(cnts, hash_dbg.COVERAGE_MAX).astype(np.int32)
+        trace.count("paired.rows", len(keys))
+        if kc > 1:
+            keep = counts >= kc
+            keys, counts = keys[keep], counts[keep]
+        N = len(keys)
+        trace.count("paired.rows_kc", N)
     TB = (2 * k + 3) // 4
     t = PairTable(k, K, keys, counts, np.ones(N, bool),
                   np.zeros(N, np.uint64), np.zeros(N, np.uint64),
                   np.zeros(N, np.uint64), np.zeros(N, np.uint64),
                   np.zeros((N, TB), np.uint8), device=str(device))
-    if N == 0:
-        mark("fill")
-        return t
+    if N:
+        with trace.span("paired.fill", device=True):
+            _fill_pair_side(t, keys, batches, dev)
+    return t
+
+
+def _fill_pair_side(t: PairTable, keys: np.ndarray, batches: list,
+                    dev: torch.device) -> None:
+    """The side arrays (hashes and packed text) of each row of t, from
+    the first occurrence of its fingerprint in `batches`."""
+    k, K, N = t.k, t.K, len(keys)
     filled = np.zeros(N, bool)
     keys_dev = u64.from_numpy(keys, dev)
     keys_key = u64.flip(keys_dev).contiguous()
@@ -463,8 +453,6 @@ def count_pairs_wide(batches, k: int, K: int, kc: int = 1,
         t.text[rows_u] = hash_dbg.pack_text(both, 2 * k)
         filled[rows_u] = True
         filled_dev[torch.from_numpy(rows_u).to(dev)] = True
-    mark("fill")
-    return t
 
 
 def _pair_end_bases(t: PairTable):
@@ -628,28 +616,33 @@ class DevicePairDBG:
 
 def assemble_pairs_wide(batches, k: int, K: int, kc: int = 2,
                         tip_len: int | None = None, device="cuda",
-                        info: dict | None = None,
                         ) -> list[tuple[str, int]]:
     """Wide-mode paired assembly: count, kc filter and fill, the device
     probe, trim (performTrim, default t = span) and chain decomposition,
-    then host emission.  `info`, if given, receives each phase's
-    seconds ("count", "kc filter", "fill", "probe", "trim", "chains",
-    "emission") and the rows before and after kc (count_pairs_wide)."""
-    t = count_pairs_wide(batches, k, K, kc=kc, device=device, info=info)
+    then host emission.  Each phase is a span: count_pairs_wide's, then
+    `paired.probe`, `paired.trim`, `paired.chains` and
+    `paired.emission`."""
+    t = count_pairs_wide(batches, k, K, kc=kc, device=device)
     t.alive &= t.counts >= kc
     if t.n == 0:
         return []
-    mark = _marker(info, resolve_device(device))
-    d = DevicePairDBG(t, zero_gap=(K == 2 * k))
-    mark("probe")
+    with trace.span("paired.probe", device=True):
+        d = DevicePairDBG(t, zero_gap=(K == 2 * k))
     max_tip = K if tip_len is None else tip_len
-    if max_tip > 0:
-        d.trim(max_tip)
-        t.alive = d.alive_d.cpu().numpy().copy()
-    mark("trim")
-    ov_s, sidx, lengths = d.chains()
-    mark("chains")
+    with trace.span("paired.trim", device=True):
+        if max_tip > 0:
+            d.trim(max_tip)
+            t.alive = d.alive_d.cpu().numpy().copy()
+    with trace.span("paired.chains", device=True):
+        ov_s, sidx, lengths = d.chains()
+    with trace.span("paired.emission"):
+        return _emit_pair_chains(t, k, K, ov_s, sidx, lengths)
 
+
+def _emit_pair_chains(t: PairTable, k: int, K: int, ov_s, sidx,
+                      lengths) -> list[tuple[str, int]]:
+    """Each chain's sequence from its rows' packed text, deduped by
+    canonical sequence: [(sequence, coverage)]."""
     # unpack the packed text of alive rows once: [M, 2k] base codes
     alive_rows = np.flatnonzero(t.alive)
     inv = np.full(t.n, -1, np.int64)
@@ -682,5 +675,4 @@ def assemble_pairs_wide(batches, k: int, K: int, kc: int = 2,
             continue
         seen.add(canon)
         contigs.append((canon, int(t.counts[rows_].sum())))
-    mark("emission")
     return contigs

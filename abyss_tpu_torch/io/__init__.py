@@ -5,11 +5,15 @@ and silently falls back to the Python implementation when no toolchain
 is available — both produce identical batches (tests/test_native_io.py).
 """
 
+from ..utils import trace
 from . import fastx
 
 
 def read_batches(*args, **kwargs):
+    """Each batch is read inside its own `io.fastq_batch` span."""
     from . import native_fastx
     if native_fastx.available():
-        return native_fastx.read_batches(*args, **kwargs)
-    return fastx.read_batches(*args, **kwargs)
+        batches = native_fastx.read_batches(*args, **kwargs)
+    else:
+        batches = fastx.read_batches(*args, **kwargs)
+    return trace.each("io.fastq_batch", batches)

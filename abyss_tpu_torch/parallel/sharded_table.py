@@ -58,6 +58,7 @@ from ..dbg.hash_dbg import COVERAGE_MAX, pack_kmers
 from ..ops import nthash
 from ..ops.hash_probe import set_last
 from ..ops.scan import running_max, running_min
+from ..utils import trace
 from .mesh import Mesh, all_to_all
 
 SENTINEL = u64.ALL_ONES
@@ -1439,65 +1440,52 @@ def assemble_sharded(mesh: Mesh, batches, k: int, kc: int = 2,
                      auto_params: bool = False,
                      min_mean_cov: float | None = None,
                      bubble_len: int | None = None,
-                     bubbles_out: list | None = None,
-                     timings: dict | None = None):
+                     bubbles_out: list | None = None):
     """Full distributed stage 1, every phase on the mesh: count -> kc
     -> adjacency -> erode -> trim -> low-coverage loop -> bubbles ->
     assemble (NetworkSequenceCollection.cpp:457-664).  The table never
     leaves the mesh.  Returns (contigs, table); the contigs are the
-    single-device engine's set.  `timings`, when given, receives each
-    phase's wall seconds ("count", "kc filter", "adjacency", "erode",
-    "trim", "low-cov loop", "bubbles", "assemble"), each ended by a
-    device synchronisation."""
-    import time
-    clock = [time.perf_counter()]
-
-    def phase(name):
-        if timings is None:
-            return
-        for dev in set(mesh.flat):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + now - clock[0]
-        clock[0] = now
-
-    t = build_sharded_table(mesh, batches, k)
-    if auto_params and (erode_cov is None or erode_strand is None
-                        or min_mean_cov is None):
-        from ..dbg.hash_dbg import auto_coverage_params
-        e_a, E_a, c_a = auto_coverage_params(coverage_histogram_sharded(t))
-        if erode_cov is None:
-            erode_cov = e_a
-        if erode_strand is None:
-            erode_strand = E_a
-        if min_mean_cov is None:
-            min_mean_cov = c_a
+    single-device engine's set.  Each phase is a span: `mesh.count`
+    (with the coverage model), `mesh.kc_filter`, `mesh.adjacency`,
+    `mesh.erode`, `mesh.trim`, `mesh.lowcov`, `mesh.bubbles` and
+    `mesh.emit`."""
+    with trace.span("mesh.count", device=True):
+        t = build_sharded_table(mesh, batches, k)
+        if auto_params and (erode_cov is None or erode_strand is None
+                            or min_mean_cov is None):
+            from ..dbg.hash_dbg import auto_coverage_params
+            e_a, E_a, c_a = auto_coverage_params(
+                coverage_histogram_sharded(t))
+            if erode_cov is None:
+                erode_cov = e_a
+            if erode_strand is None:
+                erode_strand = E_a
+            if min_mean_cov is None:
+                min_mean_cov = c_a
     if erode_cov is None:
         erode_cov = 2
     if erode_strand is None:
         erode_strand = 0
-    phase("count")
-    apply_kc_sharded(t, kc)
-    phase("kc filter")
-    build_adjacency_sharded(t)
-    phase("adjacency")
-    erode_sharded(t, erode_cov, erode_strand)
-    phase("erode")
+    with trace.span("mesh.kc_filter", device=True):
+        apply_kc_sharded(t, kc)
+    with trace.span("mesh.adjacency", device=True):
+        build_adjacency_sharded(t)
+    with trace.span("mesh.erode", device=True):
+        erode_sharded(t, erode_cov, erode_strand)
     tip = tip_len if tip_len is not None else k
-    trim_sharded(t, tip)
-    phase("trim")
+    with trace.span("mesh.trim", device=True):
+        trim_sharded(t, tip)
     if min_mean_cov:
-        while remove_low_coverage_sharded(t, min_mean_cov):
-            erode_sharded(t, erode_cov, erode_strand)
-            trim_sharded(t, tip)
-        phase("low-cov loop")
+        with trace.span("mesh.lowcov", device=True):
+            while remove_low_coverage_sharded(t, min_mean_cov):
+                erode_sharded(t, erode_cov, erode_strand)
+                trim_sharded(t, tip)
     # -b0 disables popping (Assembly/Options.cc:62,177); None = default
     blen = bubble_len if bubble_len is not None else 2 * k + 1
-    popped = pop_bubbles_sharded(t, blen) if blen > 0 else []
+    with trace.span("mesh.bubbles", device=True):
+        popped = pop_bubbles_sharded(t, blen) if blen > 0 else []
     if bubbles_out is not None:
         bubbles_out.extend(popped)
-    phase("bubbles")
-    out = assemble_final_sharded(t)
-    phase("assemble")
+    with trace.span("mesh.emit", device=True):
+        out = assemble_final_sharded(t)
     return out, t

@@ -18,10 +18,11 @@ Phases, each printing one JSON line:
   main    the port's main path at real size: `bloom_dbg.assemble` on a
           4.6 Mbp genome with 12 exact 700 bp repeats, 613,333 pairs of
           150 bp reads (40x, substitution error 0.005), k=31, the CLI
-          defaults; the kernels' launch counts are reset just before and
-          read just after, pass 2's time is split by function, and the
-          contigs are checked against the genome; every ntHash launch
-          is recorded by shape.  Then the ntHash kernel at every shape
+          defaults, traced (abyss_tpu_torch/utils/trace.py: the passes'
+          spans, pass 2's split into its spans' self times, the walk
+          counters); the kernels' launch counts are reset just before and
+          read just after, and the contigs are checked against the
+          genome; every ntHash launch is recorded by shape.  Then the ntHash kernel at every shape
           the run launched (the histogram, each shape timed by a CUDA
           graph of launches and checked against the plain version, and
           pass-1 batch 150 of the run).  Then the walk and
@@ -48,8 +49,9 @@ Phases, each printing one JSON line:
   pe      `pe.run` on the card with the main phase's reads and pe's own
           defaults (batch 16384, max read length 256, 64 MiB, kc=2) at
           k=31, launch counts reset just before and read just after:
-          each stage's span and those of RResolver, the mapper's index
-          and vote and the MLE scan; the groups the scan took on the
+          the tracer's spans (each stage's, the mapper's index, vote and
+          chaining, DistanceEst's) and counters, and spans of RResolver
+          and the MLE scan; the groups the scan took on the
           card (64 or more); the first vote and every device MLE call
           held against the CPU; sha256 of name-3.fa, name-6.fa and
           name-8.fa, the count, N50 and sum of unitigs, contigs and
@@ -911,11 +913,10 @@ def phase_replay_walks(rec: WalkCalls, launches: dict,
 
 
 class Spans(Patches):
-    """Host seconds of a few functions of pass 2, each net of the wrapped
-    functions it calls (a stack of open spans), with a device sync at
-    the end of each span so device work lands in the span that queued
-    it.  Every wrapped function ends in a device-to-host copy anyway, so
-    the syncs add little."""
+    """Host seconds of a few functions that hold no span of the port's
+    tracer, each net of the wrapped functions it calls (a stack of open
+    spans), with a device sync at the end of each span so device work
+    lands in the span that queued it."""
 
     def __init__(self):
         self.seconds: dict = {}
@@ -984,12 +985,32 @@ def simulate_reads(genome_codes, n_pairs: int, read_len: int,
                  r2, qual)
 
 
-def _assemble(paths, params, device, timings=None) -> str:
+def _assemble(paths, params, device) -> str:
     from abyss_tpu_torch.dbg import bloom_dbg
     out = io.StringIO()
-    bloom_dbg.assemble(paths, params, out=out, device=device,
-                       timings=timings)
+    bloom_dbg.assemble(paths, params, out=out, device=device)
     return out.getvalue()
+
+
+def _inside(records, root: str) -> tuple:
+    """(self seconds, calls) by name of the tracer's spans inside the
+    spans named `root`."""
+    from abyss_tpu_torch.utils import trace
+    spans = [r for r in records if isinstance(r, trace.SpanRecord)]
+    by_id = {r.id: r for r in spans}
+
+    def under(r):
+        while r.parent is not None:
+            r = by_id[r.parent]
+            if r.name == root:
+                return True
+        return False
+
+    kept = [r for r in spans if under(r)]
+    calls: dict = {}
+    for r in kept:
+        calls[r.name] = calls.get(r.name, 0) + 1
+    return trace.self_seconds(kept), calls
 
 
 def _parity_genome() -> str:
@@ -1035,21 +1056,15 @@ def _n50(lengths) -> int:
 
 def _drive(paths, params, expected: tuple) -> dict:
     """One run of the port's assembler (`bloom_dbg.assemble` on the card)
-    with every kernel launch count set to 0 just before and read just
-    after, pass 2's time split by function, and the walk filter the run
-    built kept.  Fails if a kernel of `expected` was not launched."""
+    traced (utils/trace: the passes' spans, pass 2's split into its
+    spans, the walk counters), with every kernel launch count set to 0
+    just before and read just after, and the walk filter the run built
+    kept.  Fails if a kernel of `expected` was not launched."""
     import torch
-    from abyss_tpu_torch.dbg import bloom_dbg
     from abyss_tpu_torch.dbg import extend as ext
     from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.utils import trace
     torch.cuda.reset_peak_memory_stats()
-    timings: dict = {}
-    spans = Spans()
-    for mod, name in ((bloom_dbg, "_classify_batch"),
-                      (bloom_dbg, "_trim_branch_kmers_batch"),
-                      (ext, "extend_forward"), (ext, "fast_extend"),
-                      (ext, "_resolve"), (ext, "branch_depths")):
-        spans.wrap(mod, name)
     # keep the walk filter the run builds, for the kernel checks after it
     walk_filters = []
     walk_filter = ext.walk_filter
@@ -1058,20 +1073,20 @@ def _drive(paths, params, expected: tuple) -> dict:
         walk_filters.append(walk_filter(cbf))
         return walk_filters[-1]
 
-    spans.patch(ext, "walk_filter", keep_walk_filter)
     kernels.reset_launches()
-    try:
-        fasta = _assemble(paths, params, "cuda", timings)
-    finally:
-        launches = dict(kernels.launches)
-        spans.restore()
+    with Patches((ext, "walk_filter", lambda _: keep_walk_filter)):
+        try:
+            with trace.recording() as records:
+                fasta = _assemble(paths, params, "cuda")
+        finally:
+            launches = dict(kernels.launches)
     torch.cuda.synchronize()
     for name in expected:
         check(launches[name] > 0, f"kernel {name} was not launched on the "
                                   f"{params.filter_mode} path")
     check(len(walk_filters) == 1, "the path built no single walk filter")
-    return dict(fasta=fasta, timings=timings, spans=spans,
-                launches=launches, walk_filter=walk_filters[0],
+    return dict(fasta=fasta, records=records, launches=launches,
+                walk_filter=walk_filters[0],
                 peak=torch.cuda.max_memory_allocated())
 
 
@@ -1079,7 +1094,10 @@ def _hold_to_genome(run: dict, genome: str, phase: str, params,
                     n_pairs: int, read_len: int) -> dict:
     """The run's row: times, contig statistics against the genome, the
     FASTA's sha256 and the launches; fails on a contig check."""
-    fasta, timings = run["fasta"], run["timings"]
+    from abyss_tpu_torch.utils import trace
+    fasta, records = run["fasta"], run["records"]
+    seconds = trace.span_seconds(records)
+    split, calls = _inside(records, "bloom.pass2")
     stats = _contig_stats(fasta, genome, phase, params.k)
     kmers = int(n_pairs * 2 * (read_len - params.k + 1))
     row = dict(phase=phase, genome_bp=len(genome), pairs=n_pairs,
@@ -1088,11 +1106,11 @@ def _hold_to_genome(run: dict, genome: str, phase: str, params,
                bloom_bytes=params.bloom_bytes,
                batch_size=params.batch_size,
                max_read_len=params.max_read_len,
-               pass1_s=timings["pass1_s"],
-               pass1_kmers_per_s=kmers / timings["pass1_s"],
-               pass2_s=timings["pass2_s"],
-               pass2_split_s=run["spans"].seconds,
-               pass2_calls=run["spans"].calls, **stats,
+               pass1_s=seconds["bloom.pass1"],
+               pass1_kmers_per_s=kmers / seconds["bloom.pass1"],
+               pass2_s=seconds["bloom.pass2"],
+               pass2_split_s=split, pass2_calls=calls,
+               counts=trace.counter_totals(records), **stats,
                peak_mem_bytes=run["peak"], launches=run["launches"])
     return row
 
@@ -1327,9 +1345,10 @@ def phase_bloom_tool(tmp: str, paths, cbf) -> dict:
                 identical_to_bloom_pass1=identical,
                 info=info.getvalue().splitlines(), launches=launches)
 
-# the stage functions of pe.run, whose spans are its [wall] lines
-PE_STAGES = ("stage_unitigs_1", "stage_graph_2_3", "stage_dist_5",
-             "stage_contigs_6", "stage_scaffolds_8", "stage_stats")
+# the tracer's spans of pe.run's stages, whose seconds its [wall] lines
+# print
+PE_STAGES = ("pe.unitigs", "pe.graph", "pe.dist", "pe.contigs",
+             "pe.scaffolds", "pe.stats")
 # the MLE scan runs on the card only for 64 groups or more
 MIN_MLE_DEVICE_GROUPS = 64
 # Scaffolds against the genome.  PathConsensus (stages 5 and 7) writes
@@ -1547,19 +1566,15 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
     from abyss_tpu_torch.ops import kernels
     from abyss_tpu_torch.pipeline import pe
     from abyss_tpu_torch.stats import samtobreak
+    from abyss_tpu_torch.utils import trace
     out = os.path.join(tmp, "pe")
     params = _pe_params("pe", paths, out, "cuda")
+    # the stages, the mapper and DistanceEst are the tracer's spans
     spans = Spans()
-    for name in PE_STAGES:
-        spans.wrap(pe, name)
-    for mod, name, label in (
-            (rresolver, "build_rmer_filter", None),
-            (rresolver, "resolve_repeats", None),
-            (mapper.KmerAligner, "__init__", "mapper_index"),
-            (mapper, "_vote_kernel", None),
-            (distance_est, "_mle_scan", None),
-            (distance_est, "estimate_distances", None)):
-        spans.wrap(mod, name, label)
+    for mod, name in ((rresolver, "build_rmer_filter"),
+                      (rresolver, "resolve_repeats"),
+                      (distance_est, "_mle_scan")):
+        spans.wrap(mod, name)
     stages = ((rresolver, "build_rmer_filter", "rmer_reads"),
               (rresolver, "resolve_repeats", "rmer_windows"),
               (mapper.KmerAligner, "__init__", "mapper_index"),
@@ -1568,7 +1583,8 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with PeCapture() as cap, NthashShapes(stages) as shapes:
+        with PeCapture() as cap, NthashShapes(stages) as shapes, \
+                trace.recording() as records:
             pe.run(params)
     finally:
         launches = dict(kernels.launches)
@@ -1576,6 +1592,11 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    traced = trace.span_seconds(records)
+    calls = dict(spans.calls)
+    for r in records:
+        if isinstance(r, trace.SpanRecord) and r.name not in PE_STAGES:
+            calls[r.name] = calls.get(r.name, 0) + 1
     for name in ("nthash", "walk", "branch"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
                                   "pe path")
@@ -1595,10 +1616,10 @@ def phase_pe(tmp: str, paths, genome: str) -> tuple:
         reads=[os.path.basename(p) for p in paths], k=params.k,
         batch_size=params.batch_size, max_read_len=params.max_read_len,
         bloom_bytes=params.bloom_bytes, kc=params.kc, wall_s=wall,
-        stage_s={n: spans.gross.get(n, 0.0) for n in PE_STAGES},
-        spans_s={n: spans.gross[n] for n in spans.gross
-                 if n not in PE_STAGES},
-        calls={n: spans.calls[n] for n in spans.calls if n not in PE_STAGES},
+        stage_s={n: traced.get(n, 0.0) for n in PE_STAGES},
+        spans_s={**{n: s for n, s in traced.items() if n not in PE_STAGES},
+                 **spans.gross},
+        calls=calls, counts=trace.counter_totals(records),
         mle_groups_device=cap.mle_groups, **held, **held_genome,
         breakpoints_200=brk.breakpoints,
         breakpoint_contigs_200=brk.contigs,
@@ -1659,9 +1680,10 @@ def phase_pe_parity(tmp: str) -> dict:
 
 
 
-# the exact engine's phases: count, then assemble_table's phase points
-EXACT_PHASES = ("count", "kc filter", "wide fill", "adjacency", "erode",
-                "trim", "low-cov loop", "bubbles", "assemble")
+# the exact engine's phases: the tracer's spans of assemble_reads
+EXACT_PHASES = ("hash.count", "hash.kc_filter", "hash.wide_fill",
+                "hash.adjacency", "hash.erode", "hash.trim", "hash.lowcov",
+                "hash.bubbles", "hash.emit")
 # the wide phase: `assemble -k 96 --kc 3`, the JAX package's BASELINE
 # config #2 (stage 1 in wide mode, BENCH_NOTES.md)
 WIDE_K = 96
@@ -1669,13 +1691,13 @@ WIDE_KC = 3
 
 
 class ExactCapture(Patches):
-    """During a run of the exact engine: the seconds of each of its
-    phases (hash_dbg.assemble_reads given a `timings` dict, which ends
-    every phase in a device synchronisation) and the wide fill's rows
-    and fingerprint collisions."""
+    """During a run of the exact engine, traced: the seconds of each of
+    its phases (the tracer's spans, each ended by a device
+    synchronisation), the engine's calls and the wide fill's rows and
+    fingerprint collisions."""
 
     def __init__(self):
-        self.seconds: dict = {}
+        self.records: list = []
         self.calls = 0
         self.collisions = 0
         self.fill_rows = 0
@@ -1683,11 +1705,12 @@ class ExactCapture(Patches):
 
     def __enter__(self):
         from abyss_tpu_torch.dbg import hash_dbg
+        from abyss_tpu_torch.utils import trace
         assemble, fill = hash_dbg.assemble_reads, hash_dbg.fill_wide_side
 
         def assemble_reads(*a, **kw):
             self.calls += 1
-            return assemble(*a, timings=self.seconds, **kw)
+            return assemble(*a, **kw)
 
         def fill_wide_side(t, *a, **kw):
             out = fill(t, *a, **kw)
@@ -1697,11 +1720,21 @@ class ExactCapture(Patches):
 
         self.patch(hash_dbg, "assemble_reads", assemble_reads)
         self.patch(hash_dbg, "fill_wide_side", fill_wide_side)
+        self._recording = trace.recording()
+        self.records = self._recording.__enter__()
         return self
 
+    def __exit__(self, *exc):
+        self._recording.__exit__(*exc)
+        super().__exit__(*exc)
+
+    def seconds(self) -> dict:
+        from abyss_tpu_torch.utils import trace
+        return trace.span_seconds(self.records)
+
     def phases(self) -> dict:
-        return {n: self.seconds[n] for n in EXACT_PHASES
-                if n in self.seconds}
+        seconds = self.seconds()
+        return {n: seconds[n] for n in EXACT_PHASES if n in seconds}
 
 
 def phase_exact_pe(tmp: str, paths, genome: str) -> dict:
@@ -1716,9 +1749,6 @@ def phase_exact_pe(tmp: str, paths, genome: str) -> dict:
     from abyss_tpu_torch.pipeline import pe
     params = _pe_params("ex", paths, os.path.join(tmp, "exact_pe"), "cuda")
     params.engine = "exact"
-    spans = Spans()
-    for name in PE_STAGES:
-        spans.wrap(pe, name)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1727,7 +1757,6 @@ def phase_exact_pe(tmp: str, paths, genome: str) -> dict:
             pe.run(params)
     finally:
         launches = dict(kernels.launches)
-        spans.restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # the packed engine hashes nothing; stages 4-8's mapper launch ntHash
@@ -1740,7 +1769,7 @@ def phase_exact_pe(tmp: str, paths, genome: str) -> dict:
                batch_size=params.batch_size,
                max_read_len=params.max_read_len, kc=params.kc,
                wall_s=wall,
-               stage_s={n: spans.gross.get(n, 0.0) for n in PE_STAGES},
+               stage_s={n: cap.seconds().get(n, 0.0) for n in PE_STAGES},
                exact_phase_s=cap.phases(), **held,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=launches)
@@ -2016,24 +2045,21 @@ def phase_paired(tmp: str, paths, genome: str) -> tuple:
     from abyss_tpu_torch.dbg import paired_dbg
     from abyss_tpu_torch.io import fastx
     from abyss_tpu_torch.ops import kernels
+    from abyss_tpu_torch.utils import trace
     out = os.path.join(tmp, "paired.fa")
-    info: dict = {}
-
-    def with_info(fn):
-        return lambda *a, **kw: fn(*a, info=info, **kw)
-
     stages = ((paired_dbg, "_pair_canon_batch", "count"),
               (paired_dbg, "_pair_fill_batch", "fill"))
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with Patches((paired_dbg, "assemble_pairs", with_info)), \
-                NthashShapes(stages) as shapes:
+        with NthashShapes(stages) as shapes, trace.recording() as records:
             tools2.paireddbg_main([*paths, *PAIRED_ARGS, "-o", out,
                                    "--device", "cuda"])
     finally:
         launches = dict(kernels.launches)
+    seconds = trace.span_seconds(records)
+    counts = trace.counter_totals(records)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(launches["nthash"] > 0, "kernel nthash was not launched on the "
@@ -2051,10 +2077,10 @@ def phase_paired(tmp: str, paths, genome: str) -> tuple:
     row = dict(phase="paired", command=" ".join(["paired-dbg",
                                                  *PAIRED_ARGS]),
                genome_bp=len(genome), wall_s=wall,
-               phase_s={n: info[n] for n in (
-                   "count", "kc filter", "fill", "probe", "trim", "chains",
-                   "emission") if n in info},
-               pair_rows=info.get("rows"), pair_rows_kc=info.get("rows_kc"),
+               phase_s={n: s for n, s in seconds.items()
+                        if n.startswith("paired.")},
+               pair_rows=counts.get("paired.rows"),
+               pair_rows_kc=counts.get("paired.rows_kc"),
                contigs=len(seqs), total_bases=sum(lengths),
                n50=_n50(lengths), max_contig=max(lengths),
                contigs_with_n=sum("N" in s for s in seqs),
@@ -2275,6 +2301,7 @@ def phase_sealer(tmp: str, paths, gidx: GenomeIndex) -> dict:
     from abyss_tpu_torch.io import fastx
     from abyss_tpu_torch.ops import kernels
     from abyss_tpu_torch.pipeline import pe
+    from abyss_tpu_torch.utils import trace
     out = os.path.join(tmp, "pe")
     check(os.path.exists(os.path.join(out, "pe-8.fa")),
           "sealer: the pe phase left no pe-8.fa")
@@ -2289,17 +2316,15 @@ def phase_sealer(tmp: str, paths, gidx: GenomeIndex) -> dict:
             return sealed, st
         return run
 
-    spans = Spans()
-    spans.wrap(pe, "stage_sealer")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with Patches((sealer, "seal", keep_stats)):
+        with Patches((sealer, "seal", keep_stats)), \
+                trace.recording() as records:
             pe.run(params)
     finally:
         launches = dict(kernels.launches)
-        spans.restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(len(stats) == 1, "sealer: stage_sealer did not run once")
@@ -2327,7 +2352,7 @@ def phase_sealer(tmp: str, paths, gidx: GenomeIndex) -> dict:
     with open(params.path("8-sealed.fa"), "rb") as f:
         sha = hashlib.sha256(f.read()).hexdigest()
     row = dict(phase="sealer", sealer_ks=list(SEALER_KS), wall_s=wall,
-               sealer_s=spans.gross.get("stage_sealer", 0.0),
+               sealer_s=trace.span_seconds(records).get("pe.sealer", 0.0),
                gaps=stats[0].gaps, closed=stats[0].closed,
                scaffolds=len(sealed),
                scaffolds_with_gap=sum("N" in s for _, s in sealed),
@@ -3022,13 +3047,11 @@ def _fasta_records(path: str) -> list:
 
 
 class MeshCapture(Patches):
-    """During a sharded exact run: its phase spans (assemble_sharded
-    given a `timings` dict, each phase ended by a device sync), its
-    table, and the routing buckets that overflowed (each a retry with a
-    larger capacity, counted per shard)."""
+    """During a sharded exact run: its table and the routing buckets
+    that overflowed (each a retry with a larger capacity, counted per
+    shard)."""
 
     def __init__(self):
-        self.seconds: dict = {}
         self.tables: list = []
         self.overflows: list = []
         super().__init__()
@@ -3038,7 +3061,6 @@ class MeshCapture(Patches):
         assemble, bucketize = tst.assemble_sharded, tst._bucketize
 
         def assemble_sharded(*a, **kw):
-            kw["timings"] = self.seconds
             out = assemble(*a, **kw)
             self.tables.append(out[1])
             return out
@@ -3066,13 +3088,14 @@ def phase_mesh_exact(tmp: str, paths, genome: str) -> dict:
     from abyss_tpu_torch.ops import kernels
     from abyss_tpu_torch.parallel import sharded_table as tst
     from abyss_tpu_torch.pipeline import pe
+    from abyss_tpu_torch.utils import trace
     params = _mesh_params("mx", paths, os.path.join(tmp, "mesh_exact"),
                           "cuda", "exact", MESH_EXACT_NP)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        with MeshCapture() as cap:
+        with MeshCapture() as cap, trace.recording() as records:
             pe.stage_unitigs_1(params,
                                devices=_mesh_devices() * MESH_EXACT_NP)
     finally:
@@ -3090,7 +3113,9 @@ def phase_mesh_exact(tmp: str, paths, genome: str) -> dict:
     with open(params.path("1.fa")) as f:
         stats = _contig_stats(f.read(), genome, "mesh_exact", params.k)
     row = dict(phase="mesh_exact", mesh=f"{MESH_EXACT_NP} x cuda:0",
-               k=params.k, wall_s=wall, phase_s=dict(cap.seconds),
+               k=params.k, wall_s=wall,
+               phase_s={n: s for n, s in trace.span_seconds(records).items()
+                        if n.startswith("mesh.")},
                shard_rows=rows, shard_size=t.shard_size,
                table_rows=sum(rows), alive_rows=alive,
                bucketizations=len(cap.overflows), overflow_retries=overflow,

@@ -19,6 +19,7 @@ from abyss_tpu.core import alphabet
 from abyss_tpu.dbg import paired_dbg as J
 from abyss_tpu_torch import u64
 from abyss_tpu_torch.dbg import paired_dbg as T
+from abyss_tpu_torch.utils import trace
 from tests.test_torch_hash_dbg import as_int, as_u64, random_reads
 
 torch.set_num_threads(1)
@@ -90,13 +91,14 @@ def test_assemble_pairs_wide_matches_jax(case):
     runs it."""
     codes, k, K, kc = _cases()[case]
     want = J.assemble_pairs_wide([codes], k, K, kc=kc)
-    info = {}
-    got = T.assemble_pairs_wide([codes], k, K, kc=kc, device="cpu",
-                                info=info)
+    with trace.recording() as records:
+        got = T.assemble_pairs_wide([codes], k, K, kc=kc, device="cpu")
     assert got == want
-    assert info["rows"] >= info["rows_kc"] > 0
-    assert {"count", "kc filter", "fill", "probe", "trim", "chains",
-            "emission"} <= set(info)
+    counts = trace.counter_totals(records)
+    assert counts["paired.rows"] >= counts["paired.rows_kc"] > 0
+    assert {"paired.count", "paired.kc_filter", "paired.fill",
+            "paired.probe", "paired.trim", "paired.chains",
+            "paired.emission"} <= set(trace.span_seconds(records))
 
 
 def test_assemble_pairs_tip_len_and_batches():
