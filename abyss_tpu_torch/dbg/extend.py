@@ -77,9 +77,10 @@ def bucket_size(n: int, lo: int = 64) -> int:
 
 def walk_filter(cbf):
     """The solidity structure to probe inside the walk loops: an exact
-    open-addressing table of a sorted filter's solid keys (one [C, 8]
-    gather per probe), else the filter itself (a counting Bloom filter
-    probes its own counters)."""
+    open-addressing table of a sorted filter's solid keys, built on the
+    filter's device (hp.solid_table; one [C, 8] gather per probe), else
+    the filter itself (a counting Bloom filter probes its own
+    counters)."""
     if hasattr(cbf, "kmers") and hasattr(cbf, "threshold"):
         return hp.ProbeSet(hp.solid_table(cbf))
     return cbf

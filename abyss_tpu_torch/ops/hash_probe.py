@@ -2,10 +2,13 @@
 
 Port of abyss_tpu/ops/hash_probe.py: the membership table of the
 Bloom-DBG walks and the key -> int32 tables of the Konnector device
-BFS (gap/konnector_dev.py).  Tables are built on the host (numpy, as in
-the JAX package) and probed and grown on the device: one [C, B] gather
-of B contiguous slots per query batch, which suits small per-level
-query batches better than a searchsorted over a sorted store.
+BFS (gap/konnector_dev.py).  The membership table is built on the
+device (`build_device`), slot for slot as the host build `build`
+(numpy, as in the JAX package) lays it out; the key -> value tables
+are built on the host (`build_kv`).  Tables are probed and grown on
+the device: one [C, B] gather of B contiguous slots per query batch,
+which suits small per-level query batches better than a searchsorted
+over a sorted store.
 
 Collision policy: the table stores full 64-bit keys; a probe hit is a
 64-bit match.  EMPTY (all-ones, -1 as int64) is reserved.
@@ -23,9 +26,12 @@ import numpy as np
 import torch
 
 from .. import u64
+from ..utils import trace
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 B = 8  # probe window (slots per bucket scan)
+# build_device's scratch value of a slot no key bid for this round
+NO_BID = torch.iinfo(torch.int32).max
 
 _MIX_ADD = u64.s64(0x9E3779B97F4A7C15)
 _MIX_MUL1 = u64.s64(0xBF58476D1CE4E5B9)
@@ -85,6 +91,57 @@ def build(keys: np.ndarray, size: int | None = None) -> np.ndarray:
         size *= 2
 
 
+def build_device(keys: torch.Tensor, size: int | None = None) -> torch.Tensor:
+    """Device-side build of a membership table: int64[size + B] slots on
+    the keys' device, the same slots and the same final size as
+    `build` gives for the same keys (int64 words, any order).
+
+    Round b is one scatter: each remaining key bids its position in the
+    remaining array for slot mix(key) & (size-1) + b (an int32 minimum
+    over a scratch of size + B), so the earliest bidder wins a slot, as
+    np.unique's first occurrence does in `build`; a won slot takes the
+    winner's key if EMPTY, and the keys found at their slot leave the
+    remaining array.  Every key bidding for a slot writes the same
+    value, so the result does not depend on the device's write order.
+    One host sync a round (the compaction); on window overflow the
+    table is rebuilt at 2x, the old one freed first.  Counts
+    `walk_table.keys`, `walk_table.slots` and `walk_table.rebuilds`."""
+    if size is None:
+        size = table_size(keys.shape[0])   # EMPTY keys counted, as there
+    keys = keys[keys != u64.ALL_ONES]
+    n = keys.shape[0]
+    mixed = mix64(keys)
+    pos = torch.arange(n, dtype=torch.int32, device=keys.device)
+    rebuilds = 0
+    while True:
+        tab = torch.full((size + B,), u64.ALL_ONES, dtype=torch.int64,
+                         device=keys.device)
+        bid = torch.full((size + B,), NO_BID, dtype=torch.int32,
+                         device=keys.device)
+        remaining, base = keys, mixed & (size - 1)
+        for b in range(B):
+            if not remaining.shape[0]:
+                break
+            cand = base + b
+            bid.scatter_reduce_(0, cand, pos[:remaining.shape[0]],
+                                reduce="amin")
+            old = tab[cand]
+            tab[cand] = torch.where(old == u64.ALL_ONES,
+                                    remaining[bid[cand]], old)
+            bid[cand] = NO_BID
+            keep = tab[cand] != remaining
+            remaining, base = remaining[keep], base[keep]
+        del bid
+        if not remaining.shape[0]:
+            trace.count("walk_table.keys", n)
+            trace.count("walk_table.slots", size + B)
+            trace.count("walk_table.rebuilds", rebuilds)
+            return tab
+        del tab
+        size *= 2
+        rebuilds += 1
+
+
 def contains(tab: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Device membership probe: bool[C].  tab: int64[size + B]."""
     size = tab.shape[0] - B
@@ -142,14 +199,13 @@ class ProbeSet:
 
 
 def solid_table(filt) -> torch.Tensor:
-    """Device hash table of a sorted filter's solid keys (exact:
-    count >= threshold), built once and kept on the filter object
-    (`filt.solid_tab`)."""
+    """Hash table of a sorted filter's solid keys (exact: count >=
+    threshold), built once on the filter's device (`build_device`: no
+    host copy of the keys, the counts or the table) and kept on the
+    filter object (`filt.solid_tab`)."""
     if filt.solid_tab is None:
-        kmers = u64.to_numpy(filt.kmers)
-        counts = filt.counts.cpu().numpy()
-        filt.solid_tab = u64.from_numpy(
-            build(kmers[counts >= filt.threshold]), filt.kmers.device)
+        filt.solid_tab = build_device(
+            filt.kmers[filt.counts >= filt.threshold])
     return filt.solid_tab
 
 

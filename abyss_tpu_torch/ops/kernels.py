@@ -323,7 +323,7 @@ def walk(solid, buf: torch.Tensor, length: torch.Tensor,
     (csrc/walk.cu): the same lane states as max_steps lock steps of
     dbg/extend.fast_extend's plain loop.
 
-    solid: the walk table (int64 [size + 8], ops/hash_probe.build), a
+    solid: the walk table (int64 [size + 8], ops/hash_probe.solid_table), a
     CountingBloomFilter or a CascadingBloomFilter (ops/bloom) or a
     ShardedCountingFilter (parallel/distributed), whose variants count
     as launches["walk_bloom"], ["walk_cascade"] and ["walk_sharded"];

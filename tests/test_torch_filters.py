@@ -19,6 +19,7 @@ from abyss_tpu_torch.ops import hash_probe as thp
 from abyss_tpu_torch.ops import nthash as tnt
 from abyss_tpu_torch.ops import sort_join as tsj
 from abyss_tpu_torch.ops import sorted_filter as tsf
+from abyss_tpu_torch.utils import trace
 
 # the suite runs in several worker processes at once: one intra-op
 # thread each keeps torch's many small CPU ops from oversubscribing
@@ -217,6 +218,50 @@ def test_hash_probe_identical():
     want = jhp.ProbeSet(jnp.asarray(tab_j)).contains(jnp.asarray(q))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.numpy()[:len(keys[::3])].all()
+
+
+def build_device_case(case):
+    """(keys, explicit size or None, expected doublings or None)."""
+    rng = np.random.default_rng(21)
+    rand = rng.integers(0, 1 << 64, 2000, dtype=np.uint64)
+    if case == "empty":
+        return np.zeros(0, np.uint64), None, 0
+    if case == "all_ones":
+        # 2048 keys and EMPTY: the EMPTY key counts in the sizing
+        # (table_size(2049) = 2 * table_size(2048)), not in the table
+        more = rng.integers(0, 1 << 64, 48, dtype=np.uint64)
+        return np.concatenate([rand[:700], [thp.EMPTY], rand[700:], more]), \
+            None, None
+    if case == "unsorted":
+        return rng.permutation(np.unique(rand)), None, None
+    if case == "duplicates":
+        return rng.permutation(np.concatenate([rand, rand[::7]])), None, None
+    if case == "random_2^16":
+        return rng.integers(0, 1 << 64, 1 << 16, dtype=np.uint64), None, None
+    # explicit sizes: 2000 keys in 8192, 4096, 2048 slots
+    doublings = int(case[-1])
+    return rand, 8192 >> doublings, doublings
+
+
+@pytest.mark.parametrize("case", ["empty", "all_ones", "unsorted",
+                                  "duplicates", "random_2^16", "doublings0",
+                                  "doublings1", "doublings2"])
+def test_build_device_matches_host_build(case):
+    """The walk table's device build against the numpy build of both
+    packages: every slot and the final size, and its counters."""
+    keys, size, doublings = build_device_case(case)
+    want = thp.build(keys, size)
+    np.testing.assert_array_equal(np.asarray(jhp.build(keys, size)), want)
+    with trace.recording() as records:
+        tab = thp.build_device(u64.from_numpy(keys), size)
+    assert tab.dtype == torch.int64 and tab.shape == want.shape
+    np.testing.assert_array_equal(u64.to_numpy(tab), want)
+    first = size or thp.table_size(len(keys))
+    rebuilds = ((len(want) - thp.B) // first).bit_length() - 1
+    assert trace.counter_totals(records) == {
+        "walk_table.keys": int((keys != thp.EMPTY).sum()),
+        "walk_table.slots": len(want), "walk_table.rebuilds": rebuilds}
+    assert doublings is None or rebuilds == doublings
 
 
 def test_solid_table_attached_to_filter():

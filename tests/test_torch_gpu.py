@@ -16,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from abyss_tpu_torch import convert, sim
+from abyss_tpu_torch import convert, sim, u64
 from abyss_tpu_torch.core import alphabet
 from abyss_tpu_torch.dbg import extend as ext
 from abyss_tpu_torch.ops import bloom as tbloom
+from abyss_tpu_torch.ops import hash_probe as thp
 from abyss_tpu_torch.ops import kernels
 from abyss_tpu_torch.ops import nthash
 from abyss_tpu_torch.ops import scatter_max as tsm
@@ -177,16 +178,24 @@ def test_walk_kernel_refuses_k_beyond_rings(cuda):
     assert kernels.launches == launched
 
 
-def check_walk(cuda, max_steps, bloom, lanes=300):
-    """Kernel and plain walks agree on every state field; returns the
-    state before and the kernel's after."""
-    k = 25
+def walk_reads():
     genome = sim.genome_with_repeats(5000, seed=3, n_repeats=3,
                                      repeat_len=200)
     pr = sim.simulate_paired_reads(genome, coverage=20, read_len=100,
                                    error_rate=0.01, seed=4)
-    seqs = [s for _, s, _ in pr.reads1 + pr.reads2]
-    wf, variant = walk_filter(seqs, k, 2, bloom, cuda)
+    return [s for _, s, _ in pr.reads1 + pr.reads2]
+
+
+def check_walk(cuda, max_steps, bloom, lanes=300, wf=None):
+    """Kernel and plain walks agree on every state field (on `wf`, a
+    walk table of walk_reads' k-mers, if given); returns the state
+    before and the kernel's after."""
+    k = 25
+    seqs = walk_reads()
+    if wf is None:
+        wf, variant = walk_filter(seqs, k, 2, bloom, cuda)
+    else:
+        variant = ""
     seeds = np.stack([alphabet.encode(s[:k]) for s in seqs[:lanes]])
     st0 = ext.init_state(seeds, k + 400, k, cuda,
                          prev_base=np.zeros(len(seeds), np.uint8))
@@ -200,6 +209,34 @@ def check_walk(cuda, max_steps, bloom, lanes=300):
     for n in fields:
         assert torch.equal(getattr(a, n), getattr(b, n)), n
     return st0, a
+
+
+def test_solid_table_matches_host_build(cuda):
+    """The walk table built on the card from a filter counted from reads
+    equals the numpy build of the same solid keys, every slot and the
+    size; the walk kernel on it matches the plain walk."""
+    ctr = tsf.SortedKmerCounter(25, 2)
+    for s in walk_reads():
+        ctr.add(*nthash.canonical_hashes(
+            torch.from_numpy(alphabet.encode(s)[None]).to(cuda), 25))
+    filt = ctr.finalize(cuda)
+    tab = thp.solid_table(filt)
+    assert tab.device.type == "cuda" and filt.solid_tab is tab
+    solid = u64.to_numpy(filt.kmers)[filt.counts.cpu().numpy() >= 2]
+    assert 0 < len(solid) < filt.n
+    np.testing.assert_array_equal(u64.to_numpy(tab), thp.build(solid))
+    check_walk(cuda, 2000, False, wf=thp.ProbeSet(tab))
+
+
+@pytest.mark.parametrize("n,size", [(1 << 22, None), (20000, 1 << 12)])
+def test_build_device_matches_host_build_at_scale(cuda, n, size):
+    """Millions of random keys (the bids of a slot race in the card's
+    atomics), and a size that forces doublings."""
+    keys = np.random.default_rng(n).integers(0, 1 << 64, n, dtype=np.uint64)
+    want = thp.build(keys, size)
+    got = thp.build_device(u64.from_numpy(keys, cuda), size)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(u64.to_numpy(got), want)
 
 
 @pytest.mark.parametrize("max_depth,width", [(25, 16), (5, 16), (40, 4)])
