@@ -191,20 +191,32 @@ def assemble_pairs(batches, k: int, K: int, kc: int = 2,
     """Count pairs, build adjacency, trim tips (performTrim with the
     reference's default t = span), link unique successors, emit contigs
     (with 'N' for undetermined interior positions).  tip_len=0 disables
-    trimming.  k > 16 goes to the wide mode (assemble_pairs_wide, whose
-    phases are spans)."""
+    trimming.  k > 16 goes to the wide mode (assemble_pairs_wide).
+
+    Each phase is a span, under the wide mode's names: `paired.count`,
+    `paired.kc_filter`, `paired.probe` (the adjacency), `paired.trim`
+    (every round), `paired.chains` (the final links, ranks and order)
+    and `paired.emission` (`_emit_packed_chains`).  Counters:
+    `paired.rows` and `paired.rows_kc` (pair rows before and after the
+    kc filter), `paired.trim_rounds` and `paired.contigs`."""
     if k > 16:
         return assemble_pairs_wide(batches, k, K, kc=kc, tip_len=tip_len,
                                    device=device)
-    t = count_pairs(batches, k, K, device=device)
-    t.alive &= t.counts >= kc
-    nbr = build_pair_adjacency(t, k)
-    if K == 2 * k:
-        b_first = ((t.kmers >> np.uint64(2 * (k - 1))) &
-                   np.uint64(3)).astype(np.uint8)
-        a_last = ((t.kmers >> np.uint64(2 * k)) &
-                  np.uint64(3)).astype(np.uint8)
-        nbr = _filter_inconsistent_zero_gap(nbr, b_first, a_last)
+    with trace.span("paired.count", device=True):
+        t = count_pairs(batches, k, K, device=device)
+    with trace.span("paired.kc_filter"):
+        t.alive &= t.counts >= kc
+        if trace.enabled():
+            trace.count("paired.rows", t.n)
+            trace.count("paired.rows_kc", int(t.alive.sum()))
+    with trace.span("paired.probe"):
+        nbr = build_pair_adjacency(t, k)
+        if K == 2 * k:
+            b_first = ((t.kmers >> np.uint64(2 * (k - 1))) &
+                       np.uint64(3)).astype(np.uint8)
+            a_last = ((t.kmers >> np.uint64(2 * k)) &
+                      np.uint64(3)).astype(np.uint8)
+            nbr = _filter_inconsistent_zero_gap(nbr, b_first, a_last)
     N = t.n
     alive = t.alive
     rc = _rc_pair_host(t.kmers, k)
@@ -256,18 +268,37 @@ def assemble_pairs(batches, k: int, K: int, kc: int = 2,
         return right_deg, left_deg, nxt
 
     max_tip = K if tip_len is None else tip_len
-    while max_tip > 0:
-        rd, ld, nxt = build_links()
-        if not _chain_trim_round(alive, nxt, rd, ld, max_tip):
-            break
-    right_deg, left_deg, nxt = build_links()
+    with trace.span("paired.trim"):
+        rounds = 0
+        while max_tip > 0:
+            rd, ld, nxt = build_links()
+            rounds += 1
+            if not _chain_trim_round(alive, nxt, rd, ld, max_tip):
+                break
+        trace.count("paired.trim_rounds", rounds)
+    with trace.span("paired.chains"):
+        right_deg, left_deg, nxt = build_links()
+        head, pos = hash_dbg._pointer_double(nxt)
+        alive_ov = np.repeat(alive, 2)
+        order = np.lexsort((pos, head))
+        order = order[alive_ov[order]]
+        heads = head[order]
+        bounds = np.nonzero(np.concatenate([[True],
+                                            heads[1:] != heads[:-1]]))[0]
+    with trace.span("paired.emission"):
+        contigs = _emit_packed_chains(t, k, K, rc, order, bounds)
+        trace.count("paired.contigs", len(contigs))
+    return contigs
 
-    head, pos = hash_dbg._pointer_double(nxt)
-    alive_ov = np.repeat(alive, 2)
-    order = np.lexsort((pos, head))
-    order = order[alive_ov[order]]
-    heads = head[order]
-    bounds = np.nonzero(np.concatenate([[True], heads[1:] != heads[:-1]]))[0]
+
+def _emit_packed_chains(t: KmerTable, k: int, K: int, rc: np.ndarray,
+                        order: np.ndarray, bounds: np.ndarray
+                        ) -> list[tuple[str, int]]:
+    """Each chain's sequence, spelled from its rows' pairs (rc[r] where
+    the chain walks row r on its reverse strand; 'N' where no pair fixes
+    a base), deduped by canonical sequence: [(sequence, coverage)].
+    `order` lists the chains' oriented vertices head by head, each
+    chain starting at `bounds`."""
     contigs = []
     seen = set()
     span = K
@@ -586,14 +617,16 @@ class DevicePairDBG:
             return 0
         rounds_t = max(int(np.ceil(np.log2(max_tip))), 0) \
             if max_tip > 1 else 0
-        total = 0
+        total = rounds = 0
         while True:
             outdeg, indeg = self._deg_ov()
             self.alive_d, removed = chain_ops._trim_round_impl(
                 self._nxt(), outdeg, indeg, self.alive_d, self.counts_d,
                 max_tip, rounds_t)
+            rounds += 1
             removed = int(removed)
             if removed == 0:
+                trace.count("paired.trim_rounds", rounds)
                 return total
             total += removed
 
@@ -621,7 +654,8 @@ def assemble_pairs_wide(batches, k: int, K: int, kc: int = 2,
     probe, trim (performTrim, default t = span) and chain decomposition,
     then host emission.  Each phase is a span: count_pairs_wide's, then
     `paired.probe`, `paired.trim`, `paired.chains` and
-    `paired.emission`."""
+    `paired.emission`, and the counters `paired.trim_rounds` and
+    `paired.contigs`, as in the packed mode."""
     t = count_pairs_wide(batches, k, K, kc=kc, device=device)
     t.alive &= t.counts >= kc
     if t.n == 0:
@@ -636,7 +670,9 @@ def assemble_pairs_wide(batches, k: int, K: int, kc: int = 2,
     with trace.span("paired.chains", device=True):
         ov_s, sidx, lengths = d.chains()
     with trace.span("paired.emission"):
-        return _emit_pair_chains(t, k, K, ov_s, sidx, lengths)
+        contigs = _emit_pair_chains(t, k, K, ov_s, sidx, lengths)
+        trace.count("paired.contigs", len(contigs))
+    return contigs
 
 
 def _emit_pair_chains(t: PairTable, k: int, K: int, ov_s, sidx,

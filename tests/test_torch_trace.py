@@ -312,3 +312,39 @@ def test_stage_unitigs_alone_is_a_job(tmp_path):
     names = set(trace.span_seconds(records))
     assert {"io.fastq_batch", "io.fasta_write", "hash.count",
             "hash.emit"} <= names
+
+
+PACKED_PAIR_SPANS = ["paired.count", "paired.kc_filter", "paired.probe",
+                     "paired.trim", "paired.chains", "paired.emission"]
+
+
+def test_packed_pair_engine_phases_are_spans(tmp_path):
+    """pe's paired stage 1 at K <= 16: each phase of the packed engine a
+    span, in order, none inside another and all in the job; the row,
+    round and contig counters; the same name-1.fa untraced."""
+    reads = write_pairs(str(tmp_path), genome_len=4000, coverage=30)
+
+    def run(name):
+        p = pe.PipelineParams(name=name, k=60, K=16, in_files=reads,
+                              outdir=str(tmp_path), verbose=0,
+                              max_read_len=128, device="cpu")
+        with open(pe.stage_unitigs_1(p), "rb") as f:
+            return f.read()
+
+    plain = run("plain")
+    assert trace.take() == []
+    with trace.recording() as records:
+        traced = run("traced")
+    assert traced == plain
+    spans = [r for r in records if isinstance(r, trace.SpanRecord)
+             and r.name.startswith("paired.")]
+    assert [r.name for r in spans] == PACKED_PAIR_SPANS
+    jobs = {r.job for r in records}
+    assert len(jobs) == 1 and jobs != {0}
+    ids = {r.id for r in spans}
+    assert all(r.parent not in ids for r in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+    counts = trace.counter_totals(records)
+    assert counts["paired.rows"] >= counts["paired.rows_kc"] > 0
+    assert counts["paired.trim_rounds"] >= 1
+    assert counts["paired.contigs"] == plain.count(b">") > 0
