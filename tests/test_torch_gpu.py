@@ -639,6 +639,48 @@ def test_paired_dbg_on_card_matches_cpu(cuda, k, K):
     assert got
 
 
+def test_paired_packed_graph_on_card_matches_cpu(cuda, monkeypatch):
+    """The packed pair engine at the README's k = 16, span 96 on 100 kbp
+    of 2 x 250 bp pairs at 40x: the same contigs on the card as on the
+    CPU, and the phases after the count (the probe, then the graph
+    phases: links, trim rounds, chain order, emission) peak under the
+    count, so that the graph on the card never sets the job's peak."""
+    from abyss_tpu_torch.dbg import paired_dbg
+    genome = sim.genome_with_repeats(100_000, seed=21, n_repeats=2,
+                                     repeat_len=700)
+    pr = sim.simulate_paired_reads(genome, coverage=40, read_len=250,
+                                   fragment_mean=600, fragment_sd=60,
+                                   error_rate=0.005, seed=22)
+    reads = np.stack([alphabet.encode(s)
+                      for _, s, _ in pr.reads1 + pr.reads2])
+    batches = [reads[i:i + 4096] for i in range(0, len(reads), 4096)]
+    peaks = {}
+
+    def measured(name):
+        fn = getattr(paired_dbg, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks[name] = max(peaks.get(name, 0),
+                              torch.cuda.max_memory_allocated())
+            return out
+        monkeypatch.setattr(paired_dbg, name, run)
+
+    for name in ("count_pairs", "build_pair_adjacency", "_pair_links",
+                 "_pair_trim_round", "_pair_chain_order",
+                 "_emit_packed_chains"):
+        measured(name)
+    got = paired_dbg.assemble_pairs(batches, 16, 96, device="cuda")
+    monkeypatch.undo()
+    assert got == paired_dbg.assemble_pairs(batches, 16, 96, device="cpu")
+    assert len(got) > 10
+    count = peaks.pop("count_pairs")
+    assert max(peaks.values()) < count, (count, peaks)
+
+
 @pytest.mark.parametrize("engine", ["device", "host"])
 def test_konnector_on_card_matches_cpu(cuda, engine, monkeypatch):
     """connect_pairs_full on error-laden pairs, on the sorted filter

@@ -4,9 +4,11 @@ the CPU, bit for bit (integers throughout: the tolerance is exact).
 The cases of tests/test_pipeline.py::test_paired_dbg_wide_mode_matches_packed
 and ::test_paired_dbg_large_k as parity cases, error-laden reads at
 k = 16 (pairs that set bit 63) and at the zero gap K = 2k, a genome
-with rc-palindromic pair windows, and each device function of the
-packed and wide modes against its JAX function, with argmax ties in
-the successor links.
+with rc-palindromic pair windows, circular genomes (cycles in the
+links, of 2^10 vertices in one), chains too short to fix every base,
+and each device function of the packed and wide modes against its JAX
+function, with argmax ties in the successor links; the packed chain
+order and trim round against the JAX package's host ranking.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 
 from abyss_tpu import sim
 from abyss_tpu.core import alphabet
+from abyss_tpu.dbg import hash_dbg as JH
 from abyss_tpu.dbg import paired_dbg as J
 from abyss_tpu_torch import u64
 from abyss_tpu_torch.dbg import paired_dbg as T
@@ -41,6 +44,23 @@ def palindromic_genome(n: int, seed: int) -> str:
     pal = p8 + alphabet.revcomp(p8)
     pal2 = p20 + alphabet.revcomp(p20)
     return g[:n // 3] + pal + g[n // 3:2 * n // 3] + pal2 + g[2 * n // 3:]
+
+
+def circular_reads(n: int, seed: int, L: int = 90, step: int = 3):
+    """Reads tiled around a circular genome of n bases: its pair graph
+    is two cycles of n oriented vertices."""
+    g = sim.random_genome(n, seed=seed)
+    return tiled_reads(g + g[:L], L, step)
+
+
+def palindromic_pair_reads(seed: int, k: int, K: int):
+    """Reads of a genome holding one pair window a + gap + rc(a), a pair
+    that is its own reverse complement."""
+    g = sim.random_genome(1500, seed=seed)
+    a = sim.random_genome(k, seed=seed + 1)
+    gap = sim.random_genome(K - 2 * k, seed=seed + 2)
+    return tiled_reads(g[:700] + a + gap + alphabet.revcomp(a) + g[700:],
+                       90, 2)
 
 
 def _t(codes):
@@ -71,6 +91,19 @@ def _cases():
         "errors_k16_K32_zero_gap": (err, 16, 32, 2),
         "errors_k16_K48": (err, 16, 48, 2),
         "errors_k31_K80": (err, 31, 80, 2),
+        # 2 x 1024 oriented vertices: cycles of 2^10, each member its own
+        # chain (hash_dbg._pointer_double's rule)
+        "circular_1024_k12_K40": (circular_reads(1024, 80), 12, 40, 2),
+        "circular_1500_k16_K48": (circular_reads(1500, 81), 16, 48, 2),
+        # chains shorter than K - 2k + 1 vertices leave an N gap
+        "n_gap_k8_K48": (random_reads(82, n=500, L=100, glen=1500,
+                                      err=0.01), 8, 48, 1),
+        "zero_gap_k12_K24_kc1": (random_reads(83, n=500, L=100, glen=1500,
+                                              err=0.004), 12, 24, 1),
+        "palindromic_pair_k16_K40": (palindromic_pair_reads(84, 16, 40),
+                                     16, 40, 1),
+        # no solid pair: the JAX package's one all-N contig
+        "no_solid_pair_k16_K48": (err, 16, 48, 1000),
     }
 
 
@@ -81,6 +114,30 @@ def test_assemble_pairs_matches_jax(case):
     got = T.assemble_pairs([codes], k, K, kc=kc, device="cpu")
     assert got == want
     assert want
+
+
+@pytest.mark.parametrize("case,what", [
+    ("circular_1024_k12_K40", "cycles"), ("circular_1500_k16_K48", "cycles"),
+    ("n_gap_k8_K48", "n_gap"), ("palindromic_pair_k16_K40", "palindrome")])
+def test_assemble_pairs_case_shapes(case, what):
+    """The packed cases above hold what they are there for: cycles in
+    the final links (counted by `paired.cycle_vertices`), an N gap in a
+    contig, a palindromic pair row."""
+    codes, k, K, kc = _cases()[case]
+    with trace.recording() as records:
+        got = T.assemble_pairs([codes], k, K, kc=kc, device="cpu")
+    counts = trace.counter_totals(records)
+    assert counts["paired.contigs"] == len(got)
+    if what == "cycles":
+        assert counts["paired.cycle_vertices"] == 2 * counts["paired.rows"]
+    else:
+        assert counts["paired.cycle_vertices"] == 0
+    if what == "n_gap":
+        assert any("N" in seq for seq, _ in got)
+    if what == "palindrome":
+        kmers = u64.from_numpy(T.count_pairs([codes], k, K,
+                                             device="cpu").kmers)
+        assert (T._rc_pair(kmers, k) == kmers).sum() == 1
 
 
 @pytest.mark.parametrize("case", ["pipeline_packed_k14_K40",
@@ -164,7 +221,82 @@ def test_count_and_adjacency_match_jax(k, K, kc):
     jt.alive &= jt.counts >= kc
     tt.alive &= tt.counts >= kc
     np.testing.assert_array_equal(J.build_pair_adjacency(jt, k),
-                                  T.build_pair_adjacency(tt, k))
+                                  T.build_pair_adjacency(
+                                      u64.from_numpy(tt.kmers), k).T.numpy())
+
+
+def links_and_degrees(seed, rows=700):
+    """Successor links over 2 * rows oriented vertices as the pair graph
+    has them: chains, one-vertex stubs, self-links and cycles of 1, 2,
+    3, 4, 8 and more vertices among the alive rows, each with its
+    reverse-complement twin (u -> v and v^1 -> u^1); dead rows with no
+    link and degree 0.  A linked vertex has out-degree 1 (so its target
+    in-degree 1); an unlinked one 0-2.  Returns (nxt, alive, right_deg,
+    left_deg, vertices on cycles)."""
+    rng = np.random.default_rng(seed)
+    alive = rng.random(rows) > 0.1
+    live = rng.permutation(np.flatnonzero(alive))
+    nxt = np.full(2 * rows, -1, np.int64)
+    on_cycle = i = 0
+    while i < len(live):
+        seg = live[i:i + int(rng.choice([1, 2, 3, 4, 5, 8, 8, 30, 100]))]
+        ov = 2 * seg + rng.integers(0, 2, len(seg))
+        if rng.random() < 0.4:       # close it into a cycle
+            ov = np.append(ov, ov[0])
+            on_cycle += 2 * len(seg)
+        nxt[ov[:-1]] = ov[1:]
+        nxt[ov[1:] ^ 1] = ov[:-1] ^ 1
+        i += len(seg)
+    outdeg = np.where(nxt >= 0, 1, rng.integers(0, 3, 2 * rows))
+    outdeg = np.where(np.repeat(alive, 2), outdeg, 0)
+    return nxt, alive, outdeg[0::2], outdeg[1::2], on_cycle
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_pair_chain_order_matches_host_ranking(seed):
+    """The device chain order equals hash_dbg._pointer_double then
+    lexsort, as the JAX package orders the chains, cycles of 2^j
+    vertices (each member its own chain) included."""
+    nxt, alive, _, _, on_cycle = links_and_degrees(seed)
+    head, pos = JH._pointer_double(nxt)
+    order = np.lexsort((pos, head))
+    order = order[np.repeat(alive, 2)[order]]
+    heads = head[order]
+    want_start = np.concatenate([[True], heads[1:] != heads[:-1]])
+    with trace.recording() as records:
+        ov_s, start = T._pair_chain_order(torch.from_numpy(nxt),
+                                          torch.from_numpy(alive))
+    np.testing.assert_array_equal(ov_s.numpy(), order)
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    assert trace.counter_totals(records)["paired.cycle_vertices"] == \
+        on_cycle > 0
+    # the members of cycles of 2, 4 and 8 vertices are one-vertex chains
+    lengths = np.diff(np.append(np.flatnonzero(want_start), len(order)))
+    alone = set(order[np.flatnonzero(want_start)[lengths == 1]].tolist())
+    pow2 = set()
+    for v in np.flatnonzero(nxt >= 0):
+        n, w = 1, nxt[v]
+        while w != v and w >= 0 and n <= 8:
+            n, w = n + 1, nxt[w]
+        if w == v and n in (2, 4, 8):
+            pow2.add(int(v))
+    assert pow2 and pow2 <= alone
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+@pytest.mark.parametrize("max_tip", [1, 5, 96])
+def test_pair_trim_round_matches_jax(seed, max_tip):
+    """One device trim round (capped ranking) kills the rows the JAX
+    package's host round (full ranking) kills."""
+    nxt, alive, rd, ld, _ = links_and_degrees(seed)
+    want = alive.copy()
+    removed = J._chain_trim_round(want, nxt, rd, ld, max_tip)
+    got, got_removed = T._pair_trim_round(
+        torch.from_numpy(nxt), torch.from_numpy(rd), torch.from_numpy(ld),
+        torch.from_numpy(alive), torch.ones(len(alive), dtype=torch.int32),
+        max_tip)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got_removed) == removed > 0
 
 
 # --------------------------------------------------------------------------
