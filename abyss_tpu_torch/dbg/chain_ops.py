@@ -115,7 +115,7 @@ def _successors(N, rd, ld, palin, nbr8, alive, kmers, walk_word):
 
 def _nxt_packed(k: int, kmers, nbr8, alive):
     """Unique-successor links nxt[ov] for oriented vertices ov=2*i+s,
-    packed mode: the device form of hash_dbg._oriented_next."""
+    packed mode: the device form of abyss_tpu.dbg.hash_dbg._oriented_next."""
     rd, ld = _degrees_dev(nbr8, alive)
     rc = _rc_packed(kmers, k)
     palin = rc == kmers
@@ -210,7 +210,7 @@ def _rank(prev_links, with_min: bool):
 def _full_rank(nxt):
     """Full list ranking with cycle breaking: (head, pos).  Cycles are
     broken at their minimum oriented vertex, matching
-    hash_dbg._pointer_double's host resolution."""
+    abyss_tpu.dbg.hash_dbg._pointer_double's host resolution."""
     n = nxt.shape[0]
     prev = _prev_of(nxt)
     P, dist, conv, M = _rank(prev, True)

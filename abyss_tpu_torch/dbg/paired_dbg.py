@@ -190,10 +190,10 @@ def _pair_trim_round(nxt, rd, ld, alive, counts, max_tip: int):
 def _pair_chain_order(nxt, alive):
     """The alive oriented vertices in (chain head, position) order and
     the flags of the chains' first vertices, ranked as
-    hash_dbg._pointer_double ranks on the host: a cycle of 2^j oriented
-    vertices, whose doubled pointers settle on themselves, leaves each
-    member a one-vertex chain (the host form's fault, ROADMAP §C); any
-    other cycle breaks at its minimum vertex.  Counts
+    abyss_tpu.dbg.hash_dbg._pointer_double ranks on the host: a cycle of
+    2^j oriented vertices, whose doubled pointers settle on themselves,
+    leaves each member a one-vertex chain (the host form's fault,
+    ROADMAP §C); any other cycle breaks at its minimum vertex.  Counts
     `paired.cycle_vertices`, the vertices on cycles, when tracing."""
     prev = chain_ops._prev_of(nxt)
     P, dist, conv, M = chain_ops._rank(prev, True)

@@ -1,12 +1,11 @@
 """Bulk k-mer count lookup as a sort-merge join.
 
 Port of abyss_tpu/ops/sort_join.py: the exact 64-bit join
-(`join_counts`, `join_contains`), the packed 40-bit prefix probe
-(`pack_table`, `join_counts_packed`, `join_solid_packed`; the last
-answers by a search instead of a join, see there), its bitonic-merge
-form (`join_counts_merge`, `join_solid_merge`), the row join of the
-mapper's vote (`join_rows`, also a search), and the dense u8 gather and
-scatter-max by merging (`dense_gather_u8`, `dense_scatter_max_u8`, the
+(`join_counts`), the packed 40-bit prefix probe (`pack_table`,
+`join_counts_packed`, `join_solid_packed`; the last answers by a search
+instead of a join, see there), the row join of the mapper's vote
+(`join_rows`, also a search), and the dense u8 gather and scatter-max
+by merging (`dense_gather_u8`, `dense_scatter_max_u8`, the
 counting Bloom filter's update_mode="sort").
 
   1. concatenate table words and query words, so that a table row sorts
@@ -72,12 +71,6 @@ def join_counts(table_keys: torch.Tensor, table_counts: torch.Tensor,
     return (sb[M:] & _LO32).to(torch.int32)
 
 
-def join_contains(table_keys: torch.Tensor, table_counts: torch.Tensor,
-                  queries: torch.Tensor, threshold: int) -> torch.Tensor:
-    """bool[N]: the query's table count is >= threshold."""
-    return join_counts(table_keys, table_counts, queries) >= threshold
-
-
 # Packed probe: one word per element.  Layout: [63:24] 40-bit hash
 # prefix | [23] query flag | table rows: [14:0] count; query rows:
 # [22:0] original index.  Expected false joins per batch = M*N/2^40.
@@ -106,106 +99,6 @@ def pack_queries(queries: torch.Tensor) -> torch.Tensor:
     N = queries.shape[0]
     return _prefix_words(queries) | FLAG_BIT | torch.arange(
         N, dtype=torch.int64, device=queries.device)
-
-
-def _merge_pass(x: torch.Tensor, s: int):
-    """One stage of Batcher's bitonic merger at stride s, in unsigned
-    order; returns the exchanged words and the swap mask (needed to
-    invert the routing)."""
-    v = x.reshape(-1, 2, s)
-    a, b = v[:, 0], v[:, 1]
-    m = u64.flip(a) > u64.flip(b)
-    lo = torch.where(m, b, a)
-    hi = torch.where(m, a, b)
-    return torch.stack([lo, hi], 1).reshape(x.shape), m
-
-
-def _unmerge_pass(c: torch.Tensor, m: torch.Tensor, s: int) -> torch.Tensor:
-    """Invert one `_merge_pass` on a payload tensor using its swap mask."""
-    v = c.reshape(-1, 2, s)
-    a, b = v[:, 0], v[:, 1]
-    return torch.stack([torch.where(m, b, a), torch.where(m, a, b)],
-                       1).reshape(c.shape)
-
-
-def _bitonic_probe(packed_table: torch.Tensor, queries: torch.Tensor):
-    """The merge probe's shared front: the sorted query words, and for
-    each word of the merged table+queries its prefix-group match and
-    the group's table count, with the swap masks that route a payload
-    back to the sorted queries (`_merge_back`).
-
-    The table is sorted already, so grouping needs only Batcher's single
-    bitonic merge (log2(P) passes) of the ascending table, all-ones pads
-    (last in unsigned order) and the descending queries."""
-    M = packed_table.shape[0]
-    N = queries.shape[0]
-    sq, _ = u64.usort(pack_queries(queries))
-    P = 1 << max(M + N - 1, 1).bit_length()
-    pad = torch.full((P - M - N,), u64.ALL_ONES, dtype=torch.int64,
-                     device=queries.device)
-    x = torch.cat([packed_table, pad, sq.flip(0)])
-    masks = []
-    s = P // 2
-    while s >= 1:
-        x, m = _merge_pass(x, s)
-        masks.append(m)
-        s //= 2
-    prefix = u64.srl(x, PREFIX_SHIFT)
-    is_query = (x & FLAG_BIT) != 0
-    enc = (prefix << 16) | torch.where(is_query, torch.zeros_like(x),
-                                       x & COUNT_MASK)
-    run = running_max(enc)
-    return sq, masks, u64.srl(run, 16) == prefix, run & 0xFFFF
-
-
-def _merge_back(payload: torch.Tensor, masks: list, N: int) -> torch.Tensor:
-    """Replay the merge's swap masks in reverse on a payload of the
-    merged order; returns it aligned with the sorted queries."""
-    s = 1
-    for m in reversed(masks):
-        payload = _unmerge_pass(payload, m, s)
-        s *= 2
-    return payload[payload.shape[0] - N:].flip(0)
-
-
-def join_counts_merge(packed_table: torch.Tensor,
-                      queries: torch.Tensor) -> torch.Tensor:
-    """Counts per query via a log-depth bitonic MERGE of the pre-sorted
-    packed table with the sorted queries (not a full re-sort); the
-    recorded swap masks route the counts back.  The JAX package keeps it
-    as the reference formulation of the merge-with-inverse-routing idea
-    (its packed sort probe is faster there).
-
-    queries: int64[N], N < 2^23.  Returns int32[N] in query order."""
-    M = packed_table.shape[0]
-    N = queries.shape[0]
-    if M == 0:
-        return torch.zeros(N, dtype=torch.int32, device=queries.device)
-    sq, masks, match, run_count = _bitonic_probe(packed_table, queries)
-    count = torch.where(match, run_count, torch.zeros_like(run_count))
-    cq = _merge_back(count, masks, N)
-    # restore the original query order: one sort keyed by index (the
-    # keys are distinct, so an unstable sort is safe)
-    back = ((sq & IDX_MASK) << 16) | cq
-    sb, _ = torch.sort(back)
-    return (sb & 0xFFFF).to(torch.int32)
-
-
-def join_solid_merge(packed_table: torch.Tensor, queries: torch.Tensor,
-                     threshold: int) -> torch.Tensor:
-    """`join_counts_merge(...) >= threshold`, the order-restoring sort
-    carrying (index << 1 | solid bit) words.  Returns bool[N] in query
-    order."""
-    M = packed_table.shape[0]
-    N = queries.shape[0]
-    if M == 0:
-        return torch.zeros(N, dtype=torch.bool, device=queries.device)
-    sq, masks, match, run_count = _bitonic_probe(packed_table, queries)
-    bit = (match & (run_count >= threshold)).to(torch.int64)
-    bq = _merge_back(bit, masks, N)
-    back = ((sq & IDX_MASK) << 1) | bq
-    sb, _ = torch.sort(back)
-    return (sb & 1).to(torch.bool)
 
 
 def _packed_join(packed_table: torch.Tensor, queries: torch.Tensor):

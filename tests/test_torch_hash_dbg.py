@@ -246,15 +246,13 @@ def test_full_rank_with_cycles(seed):
     tP, td = TC._full_rank(torch.from_numpy(nxt.astype(np.int64)))
     np.testing.assert_array_equal(as_int(tP), as_int(jP))
     np.testing.assert_array_equal(as_int(td), as_int(jd))
-    # the host references agree with each other; they differ from the
-    # device programs on cycles of 2, 4, 8, ... vertices, whose doubled
-    # pointers return to themselves and look converged (a fault of the
-    # JAX package's _pointer_double, reproduced)
-    hP, hd = T._pointer_double(nxt.astype(np.int64))
-    jhP, jhd = J._pointer_double(nxt.astype(np.int64))
-    np.testing.assert_array_equal(hP, jhP)
-    np.testing.assert_array_equal(hd, jhd)
-    for v in np.flatnonzero(hP != as_int(tP)):
+    # the JAX package's host form differs from the device programs only
+    # on cycles of 2, 4, 8, ... vertices, whose doubled pointers return
+    # to themselves and look converged (a fault of its _pointer_double)
+    hP, hd = J._pointer_double(nxt.astype(np.int64))
+    same = hP == as_int(tP)
+    np.testing.assert_array_equal(hd[same], as_int(td)[same])
+    for v in np.flatnonzero(~same):
         n, w = 1, nxt[v]
         while w != v:
             n, w = n + 1, nxt[w]

@@ -239,8 +239,10 @@ def case_erode_strand_threshold(mod):
 
 
 def case_trim_fixpoint_equals_ladder_schedule(mod):
-    """The direct t-fixpoint trim reaches the ladder's alive set (one
-    seed of the JAX package's slow test)."""
+    """The direct t-fixpoint trim reaches the alive set and removal
+    total of the 1, 2, 4, .., t ladder of abyss_tpu's host round
+    (hash_dbg._trim_round) on a JAX table built the same way (one seed
+    of the JAX package's slow test)."""
     genome = sim.genome_with_repeats(3000, seed=101, n_repeats=3,
                                      repeat_len=150)
     reads = sim.simulate_paired_reads(genome, coverage=25, read_len=70,
@@ -252,20 +254,20 @@ def case_trim_fixpoint_equals_ladder_schedule(mod):
     mod.apply_coverage_threshold(ta, 2)
     mod.build_adjacency(ta)
     mod.erode(ta, 2)
-    tb = mod.KmerTable(k, ta.kmers.copy(), ta.counts.copy(),
-                       ta.alive.copy(), **kw(mod))
-    mod.build_adjacency(tb)
-    mod.trim(ta, k)
+    tb = J.KmerTable(k, ta.kmers.copy(), ta.counts.copy(), ta.alive.copy())
+    J.build_adjacency(tb)
+    removed = mod.trim(ta, k)
     total, ln = 0, 1
     while ln < k:
-        total += mod._trim_round(tb, ln)
+        total += J._trim_round(tb, ln)
         ln *= 2
     while True:
-        n = mod._trim_round(tb, k)
+        n = J._trim_round(tb, k)
         total += n
         if n == 0:
             break
     np.testing.assert_array_equal(ta.alive, tb.alive)
+    assert removed == total > 0
     return total, table_state(ta)
 
 
