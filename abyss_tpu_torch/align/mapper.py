@@ -11,9 +11,12 @@ Reads with ties between two different (contig, strand, diagonal) keys
 are reported as multimapping (mapq 0), like abyss-map's unique-MUM rule.
 
 The index lives on the aligner's device; hashes are int64 tensors with
-the JAX package's uint64 bits (u64.py).  The vote is one function of
-torch ops on that device (`_vote_kernel`); the seed chaining of
-`align_batch` runs on the host, as in the JAX package.
+the JAX package's uint64 bits (u64.py).  The vote (`_vote_kernel`) and
+each read's alignment from it (`_decide`: the seed chaining of an indel
+across two diagonals, the target start, the mapq) are torch ops over the
+batch on that device; the host gets one int32 block a batch
+(`align_columns`), which `fixmate.fixmate_columns` pairs as it stands
+and `align_batch` turns into Alignment objects.
 """
 
 from __future__ import annotations
@@ -233,55 +236,108 @@ def _vote_kernel(index: KmerIndex, codes: torch.Tensor, k: int):
 
 
 MAX_CHAIN_INDEL = 64  # largest indel the two-diagonal chain bridges
+DIAG_MASK = (1 << 22) - 1  # the diagonal's bits of a vote key
+
+# rows of the int32 block `_decide` returns, one column a read: whether
+# the read maps, the contig's index, the strand, the target start, the
+# seeded read span, score and mapq; whether the two-diagonal indel chain
+# engaged, and for chained reads the CIGAR's parts (lead clip, first
+# block, insertion, deletion, second block, tail clip; 0 otherwise)
+FIELDS = ("mapped", "contig", "rev", "pos", "qstart", "qend", "score",
+          "mapq", "chained", "lead", "b1", "qgap", "tgap", "b2", "tail")
+(MAPPED, CONTIG, REV, POS, QSTART, QEND, SCORE, MAPQ, CHAINED, LEAD, B1,
+ QGAP, TGAP, B2, TAIL) = range(len(FIELDS))
 
 
-def _chain_blocks(strand, diag1, qs1, qe1, diag2, qs2, qe2, k,
-                  read_len):
-    """Chain two seed blocks on parallel diagonals into one gapped
-    alignment.  Returns (tstart, qstart, qend, cigar) or None when the
-    blocks do not chain cleanly (overlapping or out of order)."""
-    # order blocks by read coordinate
-    if qs2 < qs1:
-        (diag1, qs1, qe1), (diag2, qs2, qe2) = \
-            (diag2, qs2, qe2), (diag1, qs1, qe1)
-    if qs2 < qe1:
-        # seed spans may overlap by up to a seed width at the indel
-        # boundary (a chimeric window voting with either block); clip
-        # the first block.  Bigger overlaps are genuinely ambiguous.
-        if qe1 - qs2 > k or qs2 <= qs1:
-            return None
-        qe1 = qs2
-    if strand == 0:
-        t1, t2 = diag1 + qs1, diag2 + qs2
-        tend1 = t1 + (qe1 - qs1)
-        tgap = t2 - tend1
-        b1, b2 = qe1 - qs1, qe2 - qs2
-        lead, tail = qs1, read_len - qe2
-    else:
-        # reverse strand: later read coords map to earlier contig
-        # coords; the contig-leftmost block is the read-rightmost
-        t2 = diag2 - (qe2 - k)
-        t1 = diag1 - (qe1 - k)
-        tend2 = t2 + (qe2 - qs2)
-        tgap = t1 - tend2
-        b1, b2 = qe2 - qs2, qe1 - qs1
-        lead, tail = read_len - qe2, qs1
-        t1 = t2  # alignment starts at the contig-leftmost block
-    qgap = qs2 - qe1
-    if tgap < 0:
-        return None
-    cigar = []
-    if lead:
-        cigar.append(f"{lead}S")
-    cigar.append(f"{b1}M")
-    if qgap:
-        cigar.append(f"{qgap}I")
-    if tgap:
-        cigar.append(f"{tgap}D")
-    cigar.append(f"{b2}M")
-    if tail:
-        cigar.append(f"{tail}S")
-    return t1, qs1, qe2, "".join(cigar)
+def _decide(vote, lengths: torch.Tensor, k: int, min_seeds: int):
+    """Each read's alignment from its vote, as torch ops over the batch
+    on the vote's device: the seed chaining of an indel across two
+    diagonals, the target start and the mapq.  vote: `_vote_kernel`'s
+    eight [B] tensors; lengths: int64 [B] read lengths.  Returns the
+    int32 [len(FIELDS), B] block (all zeros for an unmapped read)."""
+    best_key, count, second, qs, qe, key2, qs2, qe2 = vote
+    mapped = (count >= min_seeds) & (best_key >= 0)
+    diag = (best_key & DIAG_MASK) - DIAG_OFF
+    strand = (best_key >> 22) & 1
+    cidx = best_key >> 23
+    fwd = strand == 0
+
+    # seed chaining across a nearby parallel diagonal of the SAME
+    # contig+strand: an indel in the read splits its seeds over two
+    # diagonals; chain them into one gapped alignment with an explicit
+    # I/D CIGAR (KAligner chains seeds)
+    ddiag = (key2 & DIAG_MASK) - (best_key & DIAG_MASK)
+    chained = (mapped & (key2 >= 0) & (second >= min_seeds)
+               & ((key2 >> 23) == cidx) & (((key2 >> 22) & 1) == strand)
+               & (ddiag != 0) & (ddiag.abs() <= MAX_CHAIN_INDEL))
+    # order the two blocks by read coordinate: block a first, then b
+    swap = qs2 < qs
+    d_a = torch.where(swap, diag + ddiag, diag)
+    d_b = torch.where(swap, diag, diag + ddiag)
+    s_a, s_b = torch.where(swap, qs2, qs), torch.where(swap, qs, qs2)
+    e_a, e_b = torch.where(swap, qe2, qe), torch.where(swap, qe, qe2)
+    # seed spans may overlap by up to a seed width at the indel boundary
+    # (a chimeric window voting with either block): clip the first
+    # block.  Bigger overlaps are genuinely ambiguous
+    over = s_b < e_a
+    chained &= ~over | ((e_a - s_b <= k) & (s_b > s_a))
+    e_a = torch.where(over, s_b, e_a)
+    len_a, len_b = e_a - s_a, e_b - s_b
+    # forward: block a lies first on the contig too.  Reverse: later
+    # read coords map to earlier contig coords; the contig-leftmost
+    # block is the read-rightmost, and the alignment starts there
+    t_a = torch.where(fwd, d_a + s_a, d_a - (e_a - k))
+    t_b = torch.where(fwd, d_b + s_b, d_b - (e_b - k))
+    tgap = torch.where(fwd, t_b - (t_a + len_a), t_a - (t_b + len_b))
+    chained &= tgap >= 0
+    c_pos = torch.where(fwd, t_a, t_b)
+    b1, b2 = torch.where(fwd, len_a, len_b), torch.where(fwd, len_b, len_a)
+    lead = torch.where(fwd, s_a, lengths - e_b)
+    tail = torch.where(fwd, lengths - e_b, s_a)
+    c_score = count + second
+    c_mapq = (20 + 2 * c_score // 2).clamp(max=60)
+
+    # ungapped: a reverse read's k-mer at w maps to contig pos diag - w,
+    # so the leftmost contig coord comes from the *last* seed
+    u_pos = torch.where(fwd, diag + qs, diag - (qe - k))
+    # multimapping rule (abyss-map unique-match analogue): a runner-up
+    # location with close support zeroes mapq (float64, as on the host)
+    multi = second.double() >= 0.9 * count.double()
+    u_mapq = torch.where(multi, 0, (20 + 2 * (count - second)).clamp(max=60))
+
+    def ch(x, y):
+        return torch.where(chained, x, y)
+
+    zero = torch.zeros_like(count)
+    cols = [mapped.long(), cidx, strand, ch(c_pos, u_pos), ch(s_a, qs),
+            ch(e_b, qe), ch(c_score, count), ch(c_mapq, u_mapq),
+            chained.long(), ch(lead, zero), ch(b1, zero),
+            ch(s_b - e_a, zero), ch(tgap, zero), ch(b2, zero),
+            ch(tail, zero)]
+    return torch.where(mapped, torch.stack(cols), 0).to(torch.int32)
+
+
+def _cigar(lead, b1, qgap, tgap, b2, tail) -> str:
+    """The CIGAR of a read chained over two blocks."""
+    return "".join((f"{lead}S" if lead else "", f"{b1}M",
+                    f"{qgap}I" if qgap else "", f"{tgap}D" if tgap else "",
+                    f"{b2}M", f"{tail}S" if tail else ""))
+
+
+def _alignments(cols: np.ndarray, ids: list[str], lengths,
+               names: list, rlens: list) -> list[Alignment | None]:
+    """The list form of `_decide`'s columns: each read's Alignment, None
+    where it does not map.  names and rlens are the index's."""
+    out: list[Alignment | None] = [None] * len(ids)
+    m = np.flatnonzero(cols[MAPPED])
+    for i, (_, c, rev, pos, qs, qe, score, mapq, chained, *parts) in zip(
+            m.tolist(), cols[:, m].T.tolist()):
+        out[i] = Alignment(
+            qname=ids[i], rname=names[c], rev=bool(rev), pos=pos,
+            qstart=qs, qend=qe, read_len=int(lengths[i]), score=score,
+            mapq=mapq, rlen=rlens[c],
+            cigar=_cigar(*parts) if chained else None)
+    return out
 
 
 class KmerAligner:
@@ -294,74 +350,32 @@ class KmerAligner:
         self.k = k
         self.min_seeds = min_seeds
 
+    def align_columns(self, codes: np.ndarray, lengths: np.ndarray,
+                      n: int) -> np.ndarray:
+        """The first n reads of a padded [B, L] batch as `_decide`'s
+        int32 [len(FIELDS), n] block: the upload, `_vote_kernel`, the
+        decision and one copy down, the span `align.vote`.  With tracing
+        on it counts `align.mapped` and `align.chained` (reads whose
+        indel chain engaged)."""
+        with trace.span("align.vote", device=True):
+            codes = _trim_pad_columns(np.asarray(codes), self.k)
+            dev = self.index.device
+            codes_t = torch.from_numpy(
+                np.ascontiguousarray(codes, np.uint8)).to(dev)
+            vote = [t[:n] for t in _vote_kernel(self.index, codes_t, self.k)]
+            lens = torch.from_numpy(
+                np.asarray(lengths[:n], np.int64)).to(dev)
+            cols = _decide(vote, lens, self.k, self.min_seeds).cpu().numpy()
+        if trace.enabled():
+            trace.count("align.mapped", cols[MAPPED].sum())
+            trace.count("align.chained", cols[CHAINED].sum())
+        return cols
+
     def align_batch(self, codes: np.ndarray, lengths: np.ndarray,
                     ids: list[str]) -> list[Alignment | None]:
         """Align a padded [B, L] read batch; one best alignment per read
         (None if unmapped/ambiguous).  Only the first len(ids) results
-        are returned.  The vote (upload, `_vote_kernel`, copy back) is
-        the span `align.vote`, the per-read host loop `align.chain`."""
-        with trace.span("align.vote", device=True):
-            codes = _trim_pad_columns(np.asarray(codes), self.k)
-            codes_t = torch.from_numpy(
-                np.ascontiguousarray(codes, np.uint8)).to(self.index.device)
-            (best_key, count, second, qstart, qend, second_key, qstart2,
-             qend2) = (t.cpu().numpy() for t in _vote_kernel(
-                 self.index, codes_t, self.k))
-        with trace.span("align.chain"):
-            return self._chain(ids, lengths, best_key, count, second,
-                               qstart, qend, second_key, qstart2, qend2)
-
-    def _chain(self, ids, lengths, best_key, count, second, qstart, qend,
-               second_key, qstart2, qend2) -> list[Alignment | None]:
-        """Each read's alignment from its vote: the seed chaining of an
-        indel across two diagonals, the CIGAR and the mapq."""
-        out = []
-        for i, qname in enumerate(ids):
-            if count[i] < self.min_seeds or best_key[i] < 0:
-                out.append(None)
-                continue
-            key = int(best_key[i])
-            diag = (key & ((1 << 22) - 1)) - DIAG_OFF
-            strand = (key >> 22) & 1
-            cidx = key >> 23
-            qs, qe = int(qstart[i]), int(qend[i])
-
-            # seed chaining across a nearby parallel diagonal of the
-            # SAME contig+strand: an indel in the read splits its seeds
-            # over two diagonals; chain them into one gapped alignment
-            # with an explicit I/D CIGAR (KAligner chains seeds)
-            chained = None
-            k2 = int(second_key[i])
-            if k2 >= 0 and second[i] >= self.min_seeds and \
-                    (k2 >> 23) == cidx and ((k2 >> 22) & 1) == strand:
-                ddiag = ((k2 & ((1 << 22) - 1)) -
-                         (key & ((1 << 22) - 1)))
-                if 0 < abs(ddiag) <= MAX_CHAIN_INDEL:
-                    qs2, qe2 = int(qstart2[i]), int(qend2[i])
-                    chained = _chain_blocks(
-                        strand, diag, qs, qe, diag + ddiag, qs2, qe2,
-                        self.k, int(lengths[i]))
-            if chained is not None:
-                tstart, qs, qe, cigar = chained
-                score = int(count[i]) + int(second[i])
-                mapq = min(60, 20 + 2 * score // 2)
-            else:
-                cigar = None
-                score = int(count[i])
-                if strand == 0:
-                    tstart = diag + qs
-                else:
-                    # reverse: read k-mer at w maps to contig pos
-                    # diag - w; leftmost contig coord comes from the
-                    # *last* seed
-                    tstart = diag - (qe - self.k)
-                # multimapping rule (abyss-map unique-match analogue):
-                # a runner-up location with close support zeroes mapq
-                mapq = 0 if second[i] >= 0.9 * count[i] else \
-                    min(60, 20 + 2 * (int(count[i]) - int(second[i])))
-            out.append(Alignment(
-                qname=qname, rname=self.index.names[cidx],
-                rev=bool(strand), pos=int(tstart), qstart=qs, qend=qe,
-                read_len=int(lengths[i]), score=score, mapq=mapq,
-                rlen=self.index.lengths[cidx], cigar=cigar))
-        return out
+        are returned: `align_columns` in the list form."""
+        cols = self.align_columns(codes, lengths, len(ids))
+        return _alignments(cols, ids, lengths, self.index.names,
+                           self.index.lengths)

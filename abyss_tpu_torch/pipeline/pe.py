@@ -509,18 +509,22 @@ def _map_library(p: PipelineParams, target_fa: str, files: list,
     contigs, _ = _read_contigs(target_fa)
     with trace.span("align.index", device=True) as index:
         al = mapper.KmerAligner(contigs, k=seed_len, device=p.device)
-    all_alns = []
+    blocks, qnames = [], []
     with trace.span("align.reads", device=True) as align:
         for batch in io_read_batches(files, p.batch_size,
                                      p.max_read_len, q=p.q):
-            alns = al.align_batch(batch.codes, batch.lengths, batch.ids)
-            all_alns.extend(alns)
+            blocks.append(al.align_columns(batch.codes, batch.lengths,
+                                           len(batch.ids)))
+            qnames.extend(batch.ids)
     with trace.span("align.fixmate") as fix:
-        out = fixmate.fixmate(all_alns)
+        cols = np.concatenate(blocks, axis=1) if blocks else \
+            np.zeros((len(mapper.FIELDS), 0), np.int32)
+        out = fixmate.fixmate_columns(cols, qnames, al.index.names,
+                                      al.index.lengths)
     if p.verbose >= 2:
         _log(p, f"[wall] map: index {index.seconds:.1f}s align "
                 f"{align.seconds:.1f}s fixmate {fix.seconds:.1f}s "
-                f"({len(all_alns)} reads)")
+                f"({len(qnames)} reads)")
     return out
 
 

@@ -50,7 +50,7 @@ Phases, each printing one JSON line:
           defaults (batch 16384, max read length 256, 64 MiB, kc=2) at
           k=31, launch counts reset just before and read just after:
           the tracer's spans (each stage's, the mapper's index, vote and
-          chaining, DistanceEst's) and counters, and spans of RResolver
+          fixmate, DistanceEst's) and counters, and spans of RResolver
           and the MLE scan; the groups the scan took on the
           card (64 or more); the first vote and every device MLE call
           held against the CPU; sha256 of name-3.fa, name-6.fa and

@@ -262,6 +262,240 @@ def test_fixmate_matches_jax(aligned):
         [dataclasses.astuple(x) for x in jlinks]
 
 
+# ------------------------------------------- the decision, from hand votes
+
+def vote_row(c=1, s=0, diag=500, count=20, qs=0, qe=60, c2=None, s2=None,
+             ddiag=0, second=0, qs2=0, qe2=0, best=True, runner=True):
+    """One read's vote: the best key (contig c, strand s, diagonal diag)
+    and a runner-up ddiag diagonals away, on contig c2 and strand s2
+    (c and s unless given); best/runner False make that key a miss."""
+    c2 = c if c2 is None else c2
+    s2 = s if s2 is None else s2
+    key = (((c << 1) | s) << 22) + diag + tmapper.DIAG_OFF
+    key2 = (((c2 << 1) | s2) << 22) + diag + ddiag + tmapper.DIAG_OFF
+    return (key if best else -1, count, second, qs, qe,
+            key2 if runner else -1, qs2, qe2)
+
+
+def tie_rows():
+    """Counts on both sides of the 0.9 multimapping rule, with every
+    10 * second == 9 * count from 10 to 300; runners-up on another
+    contig, so no chain."""
+    rows = []
+    for count in range(2, 301):
+        for second in {count * 9 // 10 - 1, count * 9 // 10,
+                       count * 9 // 10 + 1, count - 1, count}:
+            if 0 <= second <= count:
+                rows.append(vote_row(count=count, second=second, c2=2,
+                                     qs=0, qe=100))
+    return rows
+
+
+# each case: its votes, and whether the first read maps ungapped
+# ("ungapped"), chains ("chained") or is None ("none"); qs/qe/qs2/qe2
+# are read coordinates of the 100-base reads, k = 32
+DECIDE_CASES = {
+    "fwd_chain_clip": ([vote_row(ddiag=3, second=10, qs2=50, qe2=100)],
+                       "chained"),
+    "fwd_chain_swap": ([vote_row(qs=50, qe=100, ddiag=-3, second=10,
+                                 qs2=0, qe2=60)], "chained"),
+    "rev_chain": ([vote_row(s=1, diag=1000, qe=50, ddiag=-3, second=10,
+                            qs2=50, qe2=100)], "chained"),
+    "rev_chain_swap": ([vote_row(s=1, diag=1000, qs=40, qe=100, ddiag=5,
+                                 second=9, qs2=0, qe2=45)], "chained"),
+    "rev_tgap_negative": ([vote_row(s=1, diag=1000, qe=50, ddiag=3,
+                                    second=10, qs2=50, qe2=100)],
+                          "ungapped"),
+    "fwd_insertion": ([vote_row(qe=40, ddiag=-3, second=10, qs2=43,
+                                qe2=100)], "chained"),
+    "fwd_tgap_negative": ([vote_row(qe=50, ddiag=-3, second=10, qs2=50,
+                                    qe2=100)], "ungapped"),
+    "overlap_beyond_k": ([vote_row(qe=80, ddiag=2, second=10, qs2=40,
+                                   qe2=100)], "ungapped"),
+    "overlap_same_start": ([vote_row(qs=10, qe=30, ddiag=2, second=10,
+                                     qs2=10, qe2=90)], "ungapped"),
+    "ddiag_0": ([vote_row(ddiag=0, second=10, qs2=60, qe2=100)],
+                "ungapped"),
+    "ddiag_64": ([vote_row(qe=40, ddiag=64, second=10, qs2=40, qe2=100)],
+                 "chained"),
+    "ddiag_-64": ([vote_row(s=1, diag=2000, qe=40, ddiag=-64, second=10,
+                            qs2=40, qe2=100)], "chained"),
+    "ddiag_65": ([vote_row(qe=40, ddiag=65, second=10, qs2=40, qe2=100)],
+                 "ungapped"),
+    "ddiag_-65": ([vote_row(s=1, diag=2000, qe=40, ddiag=-65, second=10,
+                            qs2=40, qe2=100)], "ungapped"),
+    "runner_other_contig": ([vote_row(c2=3, ddiag=3, second=10, qs2=50,
+                                      qe2=100)], "ungapped"),
+    "runner_other_strand": ([vote_row(s2=1, ddiag=3, second=10, qs2=50,
+                                      qe2=100)], "ungapped"),
+    "runner_few_seeds": ([vote_row(ddiag=3, second=1, qs2=50, qe2=100)],
+                         "ungapped"),
+    "runner_miss": ([vote_row(runner=False, second=10)], "ungapped"),
+    "count_below_min_seeds": ([vote_row(count=1)], "none"),
+    "best_key_miss": ([vote_row(best=False)], "none"),
+    "multimapping_tie": ([vote_row(count=20, second=20, c2=2)],
+                         "ungapped"),
+    "tie_rule": (tie_rows(), "ungapped"),
+}
+
+
+@pytest.mark.parametrize("case", list(DECIDE_CASES))
+def test_decide_matches_jax(case, indexes, monkeypatch):
+    """The columnar decision of the port (`_decide`, through
+    align_batch) against the JAX package's per-read host loop, both fed
+    the same hand-built votes: every branch of the two-diagonal chain,
+    and the float64 0.9 rule at and around its ties."""
+    rows, kind = DECIDE_CASES[case]
+    votes = [np.array(col, np.int64) for col in zip(*rows)]
+    n = len(rows)
+    monkeypatch.setattr(jmapper, "_vote_kernel",
+                        lambda *a: tuple(votes))
+    monkeypatch.setattr(tmapper, "_vote_kernel",
+                        lambda *a: tuple(torch.from_numpy(v) for v in votes))
+    jal = jmapper.KmerAligner.__new__(jmapper.KmerAligner)
+    tal = tmapper.KmerAligner.__new__(tmapper.KmerAligner)
+    for al, ix in ((jal, indexes[0]), (tal, indexes[1])):
+        al.index, al.k, al.min_seeds = ix, K, 2
+    codes = np.full((n, L), 4, np.uint8)
+    lengths = np.full(n, READ_LEN, np.int32)
+    ids = [f"r{i}" for i in range(n)]
+    want = jal.align_batch(codes, lengths, ids)
+    got = tal.align_batch(codes, lengths, ids)
+    assert alignment_tuples(got) == alignment_tuples(want)
+    first = want[0]
+    assert kind == ("none" if first is None else
+                    "chained" if first.cigar else "ungapped")
+    cols = tal.align_columns(codes, lengths, n)
+    assert cols.dtype == np.int32 and cols.shape == (len(tmapper.FIELDS), n)
+    assert (cols[tmapper.CHAINED] == [a is not None and a.cigar is not None
+                                      for a in want]).all()
+    if case == "tie_rule":
+        count, second = votes[1], votes[2]
+        mapq = np.array([a.mapq for a in want])
+        assert ((mapq == 0) == (second >= 0.9 * count)).all()
+        tie = 10 * second == 9 * count
+        assert tie.sum() >= 25 and (mapq[tie] == 0).all()
+        assert (mapq > 0).any()
+
+
+# ---------------------------------------------------- fixmate, by columns
+
+def aln_rows(rng, n_keys, names):
+    """(qname, rname, rev, pos, qstart, qend, mapq) rows or None: mate
+    names from n_keys keys in a random order, each key's names drawn
+    from key, key/1 and key/2 and seen 1 to 4 times, on contigs of
+    `names`, some unmapped."""
+    out = []
+    for k in range(n_keys):
+        for _ in range(int(rng.integers(1, 5))):
+            q = f"q{k}" + ("", "/1", "/2")[rng.integers(3)]
+            if rng.random() < 0.1:
+                out.append((q, None))
+                continue
+            out.append((q, (names[rng.integers(len(names))],
+                            bool(rng.integers(2)), int(rng.integers(0, 900)),
+                            int(rng.integers(0, 20)),
+                            int(rng.integers(60, 100)),
+                            int(rng.choice([0, 3, 60])))))
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def hand_rows():
+    """By hand: key "a" three times and "b" four times, interleaved; an
+    unmapped mate; FF and RR pairs; mapq 0 on a cross-contig pair; mate
+    names without a suffix, in the order /2 then /1, a bare key with
+    key/1, a two-character name "/1" (kept whole) and "c/3"."""
+    def m(rname, rev, pos, mapq=60):
+        return (rname, rev, pos, 5, 95, mapq)
+    return [("a/1", m("u", False, 100)), ("b/1", m("u", False, 10)),
+            ("a/2", m("u", True, 400)), ("b/2", m("v", True, 50)),
+            ("a/1", m("v", False, 20)), ("b/1", m("u", True, 500)),
+            ("b/2", m("u", False, 200)), ("b/1", m("v", False, 30)),
+            ("a/2", m("v", True, 300)),
+            ("d/1", None), ("d/2", m("u", False, 7)),
+            ("ff/1", m("u", False, 10)), ("ff/2", m("u", False, 300)),
+            ("rr/1", m("v", True, 10)), ("rr/2", m("v", True, 300)),
+            ("z/1", m("u", False, 10, mapq=0)), ("z/2", m("v", True, 60)),
+            ("x", m("u", True, 600)), ("x", m("u", False, 100)),
+            ("y/2", m("v", True, 700)), ("y/1", m("u", False, 30)),
+            ("w", m("u", False, 40)), ("w/1", m("v", True, 90)),
+            ("/1", m("u", False, 1)), ("/1", m("v", False, 2)),
+            ("c/3", m("u", False, 100)), ("c/3", m("u", True, 400))]
+
+
+FIXMATE_CASES = {
+    "by_hand": lambda: hand_rows(),
+    "random_one_contig": lambda: aln_rows(np.random.default_rng(5), 150,
+                                          ["u"]),
+    "random_three_contigs": lambda: aln_rows(np.random.default_rng(6), 300,
+                                             ["u", "v", "w"]),
+}
+
+
+@pytest.mark.parametrize("case", list(FIXMATE_CASES))
+def test_fixmate_columns_match_jax(case):
+    """The columnar pairing, from a list of Alignments and from the
+    mapper's block, against `abyss_tpu.align.fixmate`'s dict loop: the
+    same histogram (its text and its insertion order) and the same
+    PairLinks in the same order."""
+    rows = FIXMATE_CASES[case]()
+    rlen = {"u": 1000, "v": 1500, "w": 900}
+    jal, tal = [], []
+    for q, a in rows:
+        if a is None:
+            jal.append(None)
+            tal.append(None)
+            continue
+        rname, rev, pos, qs, qe, mapq = a
+        kw = dict(qname=q, rname=rname, rev=rev, pos=pos, qstart=qs,
+                  qend=qe, read_len=100, score=qe - qs, mapq=mapq,
+                  rlen=rlen[rname])
+        jal.append(jmapper.Alignment(**kw))
+        tal.append(tmapper.Alignment(**kw))
+    jh, jlinks = jfixmate.fixmate([a for a in jal if a is not None])
+    want = (jh.to_text(), list(jh.counts.items()),
+            [dataclasses.astuple(x) for x in jlinks])
+    th, tlinks = tfixmate.fixmate(tal)
+    assert (th.to_text(), list(th.counts.items()),
+            [dataclasses.astuple(x) for x in tlinks]) == want
+    # the mapper's block of the same reads: contig i of contig_names
+    contig_names = sorted(rlen)
+    cols = np.zeros((len(tmapper.FIELDS), len(rows)), np.int32)
+    for i, a in enumerate(tal):
+        if a is not None:
+            cols[[tmapper.MAPPED, tmapper.CONTIG, tmapper.REV, tmapper.POS,
+                  tmapper.QSTART, tmapper.QEND, tmapper.MAPQ], i] = (
+                1, contig_names.index(a.rname), a.rev, a.pos, a.qstart,
+                a.qend, a.mapq)
+    ch, clinks = tfixmate.fixmate_columns(
+        cols, [q for q, _ in rows], contig_names,
+        [rlen[n] for n in contig_names])
+    assert (ch.to_text(), list(ch.counts.items()),
+            [dataclasses.astuple(x) for x in clinks]) == want
+    assert jh.size() > 0
+    if case != "random_one_contig":
+        assert jlinks
+
+
+def test_align_columns_fixmate_matches_jax(contigs, indexes, aligned):
+    """The mapper's block of the `aligned` fixture's reads, paired as it
+    stands, gives the JAX package's fixmate of its alignments."""
+    tal = tmapper.KmerAligner.__new__(tmapper.KmerAligner)
+    tal.index, tal.k, tal.min_seeds = indexes[1], K, 2
+    blocks, ids = [], []
+    for b in range(2):
+        codes, lengths = sample_reads(contigs, 200, 31 + b)
+        ids += [f"p{b}_{i // 2}/{i % 2 + 1}" for i in range(len(codes))]
+        blocks.append(tal.align_columns(codes, lengths, len(codes)))
+    th, tlinks = tfixmate.fixmate_columns(
+        np.concatenate(blocks, axis=1), ids, tal.index.names,
+        tal.index.lengths)
+    jh, jlinks = jfixmate.fixmate([a for a in aligned[0] if a is not None])
+    assert th.to_text() == jh.to_text() and jh.size() > 0
+    assert [dataclasses.astuple(x) for x in tlinks] == \
+        [dataclasses.astuple(x) for x in jlinks]
+
+
 def test_kmer_aligner_default_device_raises(monkeypatch, contigs):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -27,6 +27,7 @@ from abyss_tpu_torch.ops import scatter_max as tsm
 from abyss_tpu_torch.ops import sorted_filter as tsf
 from abyss_tpu_torch.parallel import distributed as tdist
 from abyss_tpu_torch.parallel import mesh as tm
+from abyss_tpu_torch.utils import trace
 from tests import test_torch_kernel_host as host
 
 # the suite runs in several worker processes at once: one intra-op
@@ -450,6 +451,46 @@ def test_vote_on_card_matches_cpu(cuda):
     for a, b in zip(*out):
         assert torch.equal(a, b)
     assert (out[1][1] >= 2).float().mean() > 0.8
+
+
+def test_map_library_on_card_matches_cpu(cuda, tmp_path):
+    """pe's mapping of one library (the index, the vote and the
+    decision of 16,384-read batches, the one copy down a batch, the
+    columnar fixmate) on the card gives the CPU's histogram, in its
+    insertion order, and the CPU's PairLinks in order: 16,666 pairs of
+    2 x 150 bp on 40 contigs of a 200 kbp genome, every fifth first
+    read with a 3-base deletion (chained over two diagonals)."""
+    from abyss_tpu_torch.align import mapper
+    from abyss_tpu_torch.pipeline import pe
+    genome = sim.random_genome(200_000, seed=31)
+    cuts = [0] + sorted(np.random.default_rng(32).choice(
+        np.arange(1000, 199_000), 39, replace=False).tolist()) + [200_000]
+    target = str(tmp_path / "t.fa")
+    with open(target, "w") as f:
+        for i, (a, b) in enumerate(zip(cuts, cuts[1:])):
+            seq = genome[a:b + 60]
+            if i % 3 == 1:
+                seq = alphabet.revcomp(seq)
+            f.write(f">{i} {len(seq)} 0\n{seq}\n")
+    pr = sim.simulate_paired_reads(genome, coverage=25, read_len=150,
+                                   fragment_mean=500, fragment_sd=50,
+                                   error_rate=0.003, seed=33)
+    pr.reads1[::5] = [(n, q[:70] + q[73:], x[3:])
+                      for n, q, x in pr.reads1[::5]]
+    files = [str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")]
+    pr.write_fastq(*files)
+    assert len(pr.reads1) >= 16_384
+    out, chained = [], []
+    for dev in ("cuda", "cpu"):
+        p = pe.PipelineParams(name="m", verbose=0, device=dev)
+        with trace.recording() as records:
+            hist, links = pe._map_library(p, target, files, p.align_k)
+        out.append((hist.to_text(), list(hist.counts.items()),
+                    [dataclasses.astuple(x) for x in links]))
+        chained.append(trace.counter_totals(records)["align.chained"])
+    assert out[0] == out[1]
+    assert chained[0] == chained[1] > 0
+    assert sum(n for _, n in out[0][1]) > 10_000 and len(out[0][2]) > 100
 
 
 def test_mle_on_card_matches_cpu(cuda):

@@ -205,6 +205,63 @@ def test_walk_counters_count_advances_and_stops():
     assert trace.take() == []
 
 
+def mapping_library(d, seed=8):
+    """(params, contigs FASTA, the two mate files) of 5 kbp: three
+    contigs of the genome, the middle one reverse-complemented, and
+    pairs whose first reads lose 3 bases at 40-42 one time in five (the
+    indels the mapper chains over two diagonals)."""
+    genome = sim.random_genome(5000, seed=seed)
+    target = os.path.join(d, "t.fa")
+    with open(target, "w") as f:
+        for i, (a, b) in enumerate(((0, 1800), (1750, 3400), (3350, 5000))):
+            seq = genome[a:b] if i != 1 else alphabet.revcomp(genome[a:b])
+            f.write(f">{i} {b - a} 0\n{seq}\n")
+    pr = sim.simulate_paired_reads(genome, coverage=30, read_len=100,
+                                   fragment_mean=400, fragment_sd=40,
+                                   error_rate=0.003, seed=seed + 1)
+    pr.reads1[::5] = [(n, q[:40] + q[43:], x[3:])
+                      for n, q, x in pr.reads1[::5]]
+    files = [os.path.join(d, "r1.fq"), os.path.join(d, "r2.fq")]
+    pr.write_fastq(*files)
+    p = pe.PipelineParams(name="m", batch_size=256, max_read_len=128,
+                          verbose=0, device="cpu")
+    return p, target, files
+
+
+def test_mapper_counters_count_reads_and_pairs(tmp_path, monkeypatch):
+    """`align.mapped`, `align.chained`, `fixmate.pairs` and
+    `fixmate.links` count what the mapper's columns and the pairing
+    hold with tracing on; off, nothing is counted (no count is asked
+    for) and the mapping is the same."""
+    from abyss_tpu_torch.align import mapper
+    from abyss_tpu_torch.io import read_batches
+    p, target, files = mapping_library(str(tmp_path))
+    with trace.recording() as records:
+        hist, links = pe._map_library(p, target, files, 32)
+    al = mapper.KmerAligner(pe._read_contigs(target)[0], k=32, device="cpu")
+    cols, qnames = [], []
+    for b in read_batches(files, p.batch_size, p.max_read_len, q=p.q):
+        cols.append(al.align_columns(b.codes, b.lengths, len(b.ids)))
+        qnames += b.ids
+    cols = np.concatenate(cols, axis=1)
+    mapped = cols[mapper.MAPPED] == 1
+    keys = [q[:-2] for q, m in zip(qnames, mapped) if m]
+    pairs = sum(n // 2 for n in np.unique(keys, return_counts=True)[1])
+    assert trace.counter_totals(records) == {
+        "align.mapped": int(mapped.sum()),
+        "align.chained": int(cols[mapper.CHAINED].sum()),
+        "fixmate.pairs": pairs, "fixmate.links": len(links)}
+    assert mapped.sum() > cols[mapper.CHAINED].sum() > 0
+    assert pairs > len(links) > 0 and hist.size() > 0
+
+    def refuse(*a):
+        raise AssertionError("trace.count called with tracing off")
+    monkeypatch.setattr(trace, "count", refuse)
+    off = pe._map_library(p, target, files, 32)
+    assert trace.take() == []
+    assert (off[0].to_text(), off[1]) == (hist.to_text(), links)
+
+
 def test_exact_engine_phases_are_spans():
     genome = sim.random_genome(3000, seed=11)
     reads = sim.simulate_paired_reads(genome, coverage=20, read_len=80,
@@ -276,7 +333,7 @@ def test_traced_pe_spans_nest(pe_runs):
             "walk.resolve", "walk.stitch", "io.fastq_batch", "io.fasta_write",
             "graph.adjacency", "graph.rresolver", "graph.filtergraph",
             "graph.popbubbles", "graph.merge", "align.index", "align.reads",
-            "align.vote", "align.chain", "align.fixmate",
+            "align.vote", "align.fixmate",
             "scaffold.distest", "scaffold.paths", "scaffold.consensus",
             "scaffold.scaffolder", "scaffold.merge"} <= names
     assert "pe.sealer" not in names           # no sealer_ks: no stage
@@ -298,6 +355,8 @@ def test_traced_pe_spans_nest(pe_runs):
     assert counts["bloom.seeds"] >= counts["bloom.contigs"] > 0
     assert counts["walk.lane_steps"] >= counts["walk.bases"] > 0
     assert counts["walk.lanes"] > 0
+    assert counts["align.mapped"] >= counts["align.chained"] >= 0
+    assert counts["fixmate.pairs"] > 0 and "fixmate.links" in counts
 
 
 def test_stage_unitigs_alone_is_a_job(tmp_path):
